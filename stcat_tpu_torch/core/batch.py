@@ -25,6 +25,16 @@ class VideoBatch:
 
 
 @dataclass
+class VideoTargets:
+    """Frame-aligned training targets: boxes[b, t] is frame t's GT box."""
+
+    boxes: Any       # [B, T, 4] normalized cxcywh (zeros outside the span)
+    box_valid: Any   # [B, T] bool: frame in the GT temporal span and valid
+    actioness: Any   # [B, T] float {0, 1}
+    temp_bound: Any  # [B, 2] int (start, end) frame index, inclusive
+
+
+@dataclass
 class RawVideoBatch:
     """Decoded, untransformed clips: uint8 pixels plus a per-clip resample plan.
 

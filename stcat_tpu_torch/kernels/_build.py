@@ -22,7 +22,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention", "bottleneck")
+SOURCES = ("flash_attention", "flash_attention_bwd", "bottleneck")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

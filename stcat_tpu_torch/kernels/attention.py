@@ -1,12 +1,16 @@
-"""Fused masked attention: the CUDA kernel ``csrc/flash_attention.cu`` and its
-plain PyTorch version.
+"""Fused masked attention: the CUDA kernels ``csrc/flash_attention.cu`` (K1,
+forward) and ``csrc/flash_attention_bwd.cu`` (K2, backward), and their plain
+PyTorch versions.
 
 ``flash_attention(q, k, v, bias)`` keeps the JAX package's interface
 (stcat_tpu/kernels/attention.py): q [BH, Sq, Dk], k [BH, Sk, Dk],
 v [BH, Sk, Dv] (Dv may differ from Dk), bias [BH, Sk] fp32 with 0 =
 attendable and -1e30 = masked, scale 1/sqrt(Dk); returns [BH, Sq, Dv] in q's
-dtype. On CUDA tensors it launches the kernel (fp32 or bf16, Dk and Dv up to
-128) or raises; on CPU tensors it runs ``attention_plain``.
+dtype. It is a ``torch.autograd.Function``: on CUDA tensors the forward
+launches K1 and the backward K2 (fp32 or bf16, Dk and Dv up to 128), or they
+raise; on CPU tensors they run ``attention_plain`` and
+``attention_bwd_plain``. Like the TPU kernel it saves q, k, v and bias, not
+the [Sq, Sk] weights, and the backward recomputes them.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 128
-LAUNCHES = _build.LaunchCounter()
+LAUNCHES = _build.LaunchCounter()      # K1
+BWD_LAUNCHES = _build.LaunchCounter()  # K2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,6 +38,34 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits + bias[:, None, :].float()
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bqk,bkd->bqd", w.to(v.dtype), v).to(q.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, g: torch.Tensor):
+    """(dq, dk, dv, dbias) of ``attention_plain`` for the output gradient g,
+    in plain torch, step by step as ``_flash_bwd_kernel`` computes them:
+    q pre-scaled in its dtype, products of compute-dtype operands with fp32
+    accumulation, w rounded to v's dtype for o and dv, d(logits) rounded to
+    q's dtype for dq, dk and dbias; dq is unscaled after a rounding, and
+    dbias (fp32) passes through k's dtype, as the trailing column of the TPU
+    kernel's folded dk does. Keys past Sk do not exist here, so a fully
+    masked row has uniform w over the real keys (as in ``_xla_attention``)."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = (q * scale).to(dt).float()
+    logits = torch.einsum("bqd,bkd->bqk", qs, k.float()) + bias[:, None, :].float()
+    w = torch.softmax(logits, dim=-1)
+    wl = w.to(v.dtype).float()
+    gv = g.to(v.dtype).float()
+    o = torch.einsum("bqk,bkd->bqd", wl, v.float())
+    delta = (g.float() * o).sum(-1, keepdim=True)
+    dp = torch.einsum("bqd,bkd->bqk", gv, v.float())
+    ds = (w * (dp - delta)).to(dt).float()
+    dq = (torch.einsum("bqk,bkd->bqd", ds, k.float()).to(dt).float() * scale).to(dt)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qs).to(k.dtype)
+    dv = torch.einsum("bqk,bqd->bkd", wl, gv).to(v.dtype)
+    dbias = ds.sum(1).to(k.dtype).float()
+    return dq, dk, dv, dbias
 
 
 def _check(q, k, v, bias) -> None:
@@ -60,6 +93,17 @@ def _check(q, k, v, bias) -> None:
             raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
+def _check_grad(q, v, g) -> None:
+    if not g.is_cuda or g.device != q.device:
+        raise ValueError("flash_attention backward: g must be on q's CUDA device")
+    if g.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: g must be {q.dtype}, got {g.dtype}")
+    expect = (q.shape[0], q.shape[1], v.shape[2])
+    if tuple(g.shape) != expect or not g.is_contiguous():
+        raise ValueError(f"flash_attention backward: g must be a contiguous {expect}, got "
+                         f"{tuple(g.shape)}")
+
+
 def _launch(q, k, v, bias) -> torch.Tensor:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
@@ -77,10 +121,58 @@ def _launch(q, k, v, bias) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(q, k, v, bias, g):
+    """K2: (dq, dk, dv, dbias) on the card."""
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bh, sq, dk = q.shape
+    sk, dv = v.shape[1], v.shape[2]
+    dq, dkk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty((bh, sk), dtype=torch.float32, device=q.device)
+    # row statistics (m, l, delta) of the two-pass path (the Sq < 8 row
+    # kernel leaves them unused)
+    stats = torch.empty((3, bh * sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+             dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
+             bh, sq, sk, dk, dv, _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
+    BWD_LAUNCHES.add()
+    return dq, dkk, dvv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, bias)
+        _check(q, k, v, bias)
+        return _launch(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, g.contiguous())
+        return dq, dk, dv, (dbias if ctx.needs_input_grad[3] else None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
-    """Masked scaled-dot-product attention; the kernel on CUDA tensors."""
+    """Masked scaled-dot-product attention, differentiable; the kernels on
+    CUDA tensors."""
+    return _FlashAttention.apply(q, k, v, bias)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, g: torch.Tensor):
+    """(dq, dk, dv, dbias) for the output gradient g: K2 on CUDA tensors,
+    ``attention_bwd_plain`` on CPU tensors."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias)
+        return attention_bwd_plain(q, k, v, bias, g)
     _check(q, k, v, bias)
-    return _launch(q, k, v, bias)
+    _check_grad(q, v, g)
+    return _launch_bwd(q, k, v, bias, g)

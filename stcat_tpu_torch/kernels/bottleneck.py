@@ -5,8 +5,13 @@ its plain PyTorch version.
 (stcat_tpu/kernels/conv.py): x [N, H, W, Cin] NHWC in the compute dtype,
 ``BlockWeights`` with FrozenBN already folded in (w1 [Cin, P], w2 [3, 3, P, P]
 HWIO, w3 [P, Cout], wd [Cin, Cout] or None, fp32 biases [1, 1, C]), dilation 1
-or 2; returns [N, H, W, Cout] in x's dtype. On CUDA tensors it launches the
-kernel or raises; on CPU tensors it runs ``bottleneck_plain``.
+or 2; returns [N, H, W, Cout] in x's dtype. It is a
+``torch.autograd.Function`` over x and the eight weight tensors: the forward
+launches the kernel on CUDA tensors (or raises) and runs ``bottleneck_plain``
+on CPU tensors; the backward, like the JAX package's ``_vjp_bwd``, re-runs
+``bottleneck_plain`` under autograd on the saved x and weights and takes its
+gradients (the TPU kernel has no backward kernel either). Only x and the
+folded weights are saved.
 
 x may be a channels-last view of an NCHW tensor (``permute(0, 2, 3, 1)`` of
 a ``torch.channels_last`` tensor is contiguous), so the backbone hands its
@@ -149,9 +154,31 @@ def _launch(x: torch.Tensor, p: BlockWeights, dilation: int) -> torch.Tensor:
     return out
 
 
+class _FusedBottleneck(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dilation, *weights):
+        ctx.dilation = dilation
+        ctx.save_for_backward(x, *weights)
+        p = BlockWeights(*weights)
+        if x.device.type == "cpu":
+            return bottleneck_plain(x, p, dilation)
+        _check(x, p, dilation)
+        return _launch(x, p, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            out = bottleneck_plain(inputs[0], BlockWeights(*inputs[1:]), ctx.dilation)
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        dx, *dw = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+        return (dx, None, *dw)
+
+
 def fused_bottleneck(x: torch.Tensor, p: BlockWeights, dilation: int = 1) -> torch.Tensor:
-    """Stride-1 bottleneck block; the kernel on CUDA tensors."""
-    if x.device.type == "cpu":
-        return bottleneck_plain(x, p, dilation)
-    _check(x, p, dilation)
-    return _launch(x, p, dilation)
+    """Stride-1 bottleneck block, differentiable; the kernel on CUDA tensors."""
+    return _FusedBottleneck.apply(x, dilation, *p)

@@ -1,11 +1,14 @@
 """Multi-head attention for the grounding transformer stack.
 
 Batch-first ([B, S, D]), masks True = VALID. ``attention_core`` routes to
-the hand-written flash-attention kernel (kernels/attention.py) when impl is
-"pallas" and no weights are returned; there is no sequence-length threshold
-(the JAX package's ``should_fuse`` was a TPU measurement). The weights
-returning path keeps the plain softmax: the decoders' self-attention feeds
-its head-averaged weights to the guided-attention loss.
+the hand-written flash-attention kernels (kernels/attention.py: K1 forward,
+K2 backward) when impl is "pallas", no weights are returned and no dropout
+is drawn, as the JAX package's ``attention_core`` does; there is no
+sequence-length threshold (the JAX package's ``should_fuse`` was a TPU
+measurement). Otherwise the plain softmax runs: the decoders'
+self-attention returns its head-averaged weights for the guided-attention
+loss, and a training call with attention dropout drops softmax weights
+(torch ``nn.MultiheadAttention`` semantics), which the kernels do not do.
 """
 
 from __future__ import annotations
@@ -16,18 +19,20 @@ import torch
 from torch import nn
 
 from ..kernels import attention as kattn
-from ..ops.misc import NEG_INF
+from ..ops.misc import NEG_INF, dropout
 
 
 def attention_core(q, k, v, key_valid: Optional[torch.Tensor] = None,
-                   return_weights: bool = False, dtype=torch.float32, impl: str = "xla"):
+                   return_weights: bool = False, dtype=torch.float32, impl: str = "xla",
+                   dropout_p: float = 0.0, generator: Optional[torch.Generator] = None):
     """Scaled dot-product attention over heads.
 
     q [B, H, Lq, Dk], k [B, H, Lk, Dk], v [B, H, Lk, Dv], key_valid [B, Lk]
-    bool (True = attendable). Returns (out [B, H, Lq, Dv] fp32,
-    weights [B, Lq, Lk] head-averaged or None).
+    bool (True = attendable). ``dropout_p`` > 0 drops softmax weights with a
+    keep mask from ``generator`` (callers pass 0 outside training). Returns
+    (out [B, H, Lq, Dv] fp32, weights [B, Lq, Lk] head-averaged or None).
     """
-    if not return_weights and impl == "pallas":
+    if not return_weights and dropout_p <= 0.0 and impl == "pallas":
         b, h, lq, dk = q.shape
         lk, dv = k.shape[2], v.shape[-1]
         if key_valid is not None:
@@ -49,9 +54,10 @@ def attention_core(q, k, v, key_valid: Optional[torch.Tensor] = None,
     if key_valid is not None:
         logits = torch.where(key_valid[:, None, None, :], logits,
                              torch.full_like(logits, NEG_INF))
-    logits = logits - logits.amax(-1, keepdim=True)
+    logits = logits - logits.amax(-1, keepdim=True).detach()
     weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", weights.to(dtype), v.to(dtype)).float()
+    pv_weights = dropout(weights, dropout_p, True, generator)
+    out = torch.einsum("bhqk,bhkd->bhqd", pv_weights.to(dtype), v.to(dtype)).float()
     if return_weights:
         return out, weights.mean(1)
     return out, None
@@ -83,12 +89,13 @@ class Linear(nn.Linear):
 
 class MultiHeadAttention(nn.Module):
     """Projected MHA in torch ``nn.MultiheadAttention``'s parameter layout
-    (packed ``in_proj_weight`` [3D, D], ``in_proj_bias``, ``out_proj``)."""
+    (packed ``in_proj_weight`` [3D, D], ``in_proj_bias``, ``out_proj``);
+    ``dropout`` applies to the softmax weights in training mode."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
-                 impl: str = "xla"):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 dtype=torch.float32, impl: str = "xla"):
         super().__init__()
-        self.d_model, self.num_heads = d_model, num_heads
+        self.d_model, self.num_heads, self.dropout = d_model, num_heads, dropout
         self.dtype, self.impl = dtype, impl
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
@@ -100,7 +107,8 @@ class MultiHeadAttention(nn.Module):
         b = self.in_proj_bias[i * d:(i + 1) * d].to(dt)
         return nn.functional.linear(x.to(dt), w, b)
 
-    def forward(self, query, key, value, key_valid=None, return_weights=False):
+    def forward(self, query, key, value, key_valid=None, return_weights=False,
+                generator: Optional[torch.Generator] = None):
         h = self.num_heads
         out, weights = attention_core(
             split_heads(self._proj(query, 0), h),
@@ -108,6 +116,7 @@ class MultiHeadAttention(nn.Module):
             split_heads(self._proj(value, 2), h),
             key_valid=key_valid, return_weights=return_weights,
             dtype=self.dtype, impl=self.impl,
+            dropout_p=self.dropout if self.training else 0.0, generator=generator,
         )
         return self.out_proj(merge_heads(out)), weights
 
@@ -116,15 +125,18 @@ class ProjectionFreeAttention(nn.Module):
     """Attention on externally projected q/k and v (q/k may be wider than v);
     only the output projection holds parameters."""
 
-    def __init__(self, v_dim: int, num_heads: int, dtype=torch.float32, impl: str = "xla"):
+    def __init__(self, v_dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype=torch.float32, impl: str = "xla"):
         super().__init__()
-        self.num_heads, self.dtype, self.impl = num_heads, dtype, impl
+        self.num_heads, self.dropout, self.dtype, self.impl = num_heads, dropout, dtype, impl
         self.out_proj = Linear(v_dim, v_dim, dtype=dtype)
 
-    def forward(self, query, key, value, key_valid=None) -> torch.Tensor:
+    def forward(self, query, key, value, key_valid=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.num_heads
         out, _ = attention_core(
             split_heads(query, h), split_heads(key, h), split_heads(value, h),
             key_valid=key_valid, dtype=self.dtype, impl=self.impl,
+            dropout_p=self.dropout if self.training else 0.0, generator=generator,
         )
         return self.out_proj(merge_heads(out))

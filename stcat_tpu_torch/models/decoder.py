@@ -4,33 +4,42 @@ and the temporal (start/end) decoder.
 One query per frame; the time-aligned cross-attention (query t attends to
 frame t's memory only) is batched attention of [B*T, 1, *] queries against
 [B*T, M, *] memories. Parameter names follow the reference STCAT
-(sa_*_proj, ca_*_proj, cross_attn / cross_attn_image, norm1/3/4, ...).
+(sa_*_proj, ca_*_proj, cross_attn / cross_attn_image, norm1/3/4, ...). In
+training mode dropout applies where the JAX package's decoders draw it: the
+attention weights, each attention output before its residual add, the FFN's
+hidden activation and its output, and after every layer of an MLP built with
+a rate (the temp/action heads').
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.embeddings import anchor_sine_embedding
-from ..ops.misc import inverse_sigmoid
+from ..ops.misc import dropout, inverse_sigmoid
 from .attention import Linear, MultiHeadAttention, ProjectionFreeAttention
 from .roberta import LayerNorm
 
 
 class MLP(nn.Module):
-    """ReLU MLP (``layers.N``), fp32."""
+    """ReLU MLP (``layers.N``), fp32; in training mode, dropout after every
+    layer (the last included, as the JAX package's MLP does)."""
 
-    def __init__(self, din: int, hidden: int, dout: int, num_layers: int):
+    def __init__(self, din: int, hidden: int, dout: int, num_layers: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         dims = [din] + [hidden] * (num_layers - 1) + [dout]
         self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:
                 x = torch.relu(x)
+            x = dropout(x, self.dropout, self.training, generator)
         return x
 
 
@@ -56,22 +65,26 @@ class TemplateGenerator(nn.Module):
 class SpatialDecoderLayer(nn.Module):
     """Temporal self-attention + time-aligned concat cross-attention + FFN."""
 
-    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, from_scratch: bool = True,
-                 has_ca_qpos_proj: bool = True, dtype=torch.float32, impl: str = "xla"):
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, dropout: float = 0.0,
+                 from_scratch: bool = True, has_ca_qpos_proj: bool = True, dtype=torch.float32,
+                 impl: str = "xla"):
         super().__init__()
         d = d_model
         self.d_model, self.num_heads, self.from_scratch = d, num_heads, from_scratch
+        self.dropout = dropout
         for name in ("sa_qcontent_proj", "sa_qpos_proj", "sa_qtime_proj", "sa_kcontent_proj",
                      "sa_kpos_proj", "sa_ktime_proj", "sa_v_proj", "ca_qcontent_proj",
                      "ca_kcontent_proj", "ca_kpos_proj", "ca_v_proj", "ca_qpos_sine_proj"):
             self.add_module(name, Linear(d, d))
         self.ca_qpos_proj = Linear(d, d) if has_ca_qpos_proj else None
-        self.self_attn = MultiHeadAttention(d, num_heads, dtype=dtype)
+        self.self_attn = MultiHeadAttention(d, num_heads, dropout, dtype=dtype)
         if from_scratch:
-            self.cross_attn = ProjectionFreeAttention(d, num_heads, dtype=dtype, impl=impl)
+            self.cross_attn = ProjectionFreeAttention(d, num_heads, dropout, dtype=dtype,
+                                                      impl=impl)
         else:
             # pretrained-init mode: a standard projected MHA (reference name)
-            self.cross_attn_image = MultiHeadAttention(d, num_heads, dtype=dtype, impl=impl)
+            self.cross_attn_image = MultiHeadAttention(d, num_heads, dropout, dtype=dtype,
+                                                       impl=impl)
             self.ca_qtime_proj = Linear(d, d)
         self.linear1 = Linear(d, ffn_dim)
         self.linear2 = Linear(ffn_dim, d)
@@ -80,14 +93,16 @@ class SpatialDecoderLayer(nn.Module):
         self.norm4 = LayerNorm(d, eps=1e-5)
 
     def forward(self, tgt, memory, mem_valid, mem_pos, query_pos, query_time,
-                query_sine_embed, frame_valid):
+                query_sine_embed, frame_valid, generator: Optional[torch.Generator] = None):
         d, h = self.d_model, self.num_heads
+        drop = lambda x: dropout(x, self.dropout, self.training, generator)  # noqa: E731
         q = self.sa_qcontent_proj(tgt) + self.sa_qtime_proj(query_time) + self.sa_qpos_proj(query_pos)
         k = self.sa_kcontent_proj(tgt) + self.sa_ktime_proj(query_time) + self.sa_kpos_proj(query_pos)
         v = self.sa_v_proj(tgt)
         # a weights-returning call (as in stcat_tpu), so it stays on the plain path
-        sa_out, _ = self.self_attn(q, k, v, key_valid=frame_valid, return_weights=True)
-        tgt = self.norm1(tgt + sa_out)
+        sa_out, _ = self.self_attn(q, k, v, key_valid=frame_valid, return_weights=True,
+                                   generator=generator)
+        tgt = self.norm1(tgt + drop(sa_out))
 
         b, t, m, _ = memory.shape
         q_content = self.ca_qcontent_proj(tgt)
@@ -106,6 +121,7 @@ class SpatialDecoderLayer(nn.Module):
             ca_out = self.cross_attn(
                 qc.reshape(b * t, 1, 2 * d), kc.reshape(b * t, m, 2 * d),
                 v_mem.reshape(b * t, m, d), key_valid=mem_valid.reshape(b * t, m),
+                generator=generator,
             )
         else:
             qc = q_content + sine + self.ca_qtime_proj(query_time)
@@ -113,12 +129,13 @@ class SpatialDecoderLayer(nn.Module):
             ca_out, _ = self.cross_attn_image(
                 qc.reshape(b * t, 1, d), kc.reshape(b * t, m, d),
                 v_mem.reshape(b * t, m, d), key_valid=mem_valid.reshape(b * t, m),
+                generator=generator,
             )
         # padded frames contribute nothing
         ca_out = torch.where(frame_valid[..., None], ca_out.reshape(b, t, d).float(), 0.0)
-        tgt = self.norm3(tgt + ca_out)
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm4(tgt + ff)
+        tgt = self.norm3(tgt + drop(ca_out))
+        ff = self.linear2(drop(torch.relu(self.linear1(tgt))))
+        return self.norm4(tgt + drop(ff))
 
 
 class SpatialDecoder(nn.Module):
@@ -127,21 +144,21 @@ class SpatialDecoder(nn.Module):
     at call time rather than owned."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int, num_layers: int,
-                 query_dim: int = 4, from_scratch: bool = True, dtype=torch.float32,
-                 impl: str = "xla"):
+                 query_dim: int = 4, dropout: float = 0.0, from_scratch: bool = True,
+                 dtype=torch.float32, impl: str = "xla"):
         super().__init__()
         self.d_model, self.query_dim = d_model, query_dim
         self.query_scale = MLP(d_model, d_model, d_model, 2)
         self.ref_point_head = MLP(2 * d_model, d_model, d_model, 2)
         self.norm = LayerNorm(d_model, eps=1e-5)
         self.layers = nn.ModuleList(
-            SpatialDecoderLayer(d_model, num_heads, ffn_dim, from_scratch,
+            SpatialDecoderLayer(d_model, num_heads, ffn_dim, dropout, from_scratch,
                                 has_ca_qpos_proj=(i == 0), dtype=dtype, impl=impl)
             for i in range(num_layers)
         )
 
     def forward(self, anchors, memory, mem_valid, mem_pos, query_time, frame_valid,
-                bbox_embed: MLP):
+                bbox_embed: MLP, generator: Optional[torch.Generator] = None):
         d = self.d_model
         tgt = torch.zeros(anchors.shape[:2] + (d,), dtype=torch.float32, device=anchors.device)
         hs_layers, ref_layers = [], [anchors]
@@ -152,8 +169,8 @@ class SpatialDecoder(nn.Module):
             pos_transform = 1.0 if i == 0 else self.query_scale(tgt)
             query_sine = sine2d[..., :d] * pos_transform
             tgt = layer(tgt, memory, mem_valid, mem_pos, query_pos, query_time,
-                        query_sine, frame_valid)
-            delta = bbox_embed(tgt)
+                        query_sine, frame_valid, generator)
+            delta = bbox_embed(tgt, generator)
             new_anchor = torch.sigmoid(delta[..., : self.query_dim] + inverse_sigmoid(anchors))
             if i != n - 1:
                 ref_layers.append(new_anchor)
@@ -166,30 +183,36 @@ class TimeDecoderLayer(nn.Module):
     """Self-attention (weights returned for the guided-attention loss) +
     time-aligned cross-attention + FFN."""
 
-    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, dtype=torch.float32,
-                 impl: str = "xla"):
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, dropout: float = 0.0,
+                 dtype=torch.float32, impl: str = "xla"):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype=dtype)
-        self.cross_attn_image = MultiHeadAttention(d_model, num_heads, dtype=dtype, impl=impl)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, dtype=dtype)
+        self.cross_attn_image = MultiHeadAttention(d_model, num_heads, dropout, dtype=dtype,
+                                                   impl=impl)
         self.linear1 = Linear(d_model, ffn_dim)
         self.linear2 = Linear(ffn_dim, d_model)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm3 = LayerNorm(d_model, eps=1e-5)
         self.norm4 = LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tgt, memory, mem_valid, mem_pos, query_pos, query_time_pos, frame_valid):
+    def forward(self, tgt, memory, mem_valid, mem_pos, query_pos, query_time_pos, frame_valid,
+                generator: Optional[torch.Generator] = None):
+        drop = lambda x: dropout(x, self.dropout, self.training, generator)  # noqa: E731
         qk = tgt + query_pos + query_time_pos
-        sa_out, weights = self.self_attn(qk, qk, tgt, key_valid=frame_valid, return_weights=True)
-        tgt = self.norm1(tgt + sa_out)
+        sa_out, weights = self.self_attn(qk, qk, tgt, key_valid=frame_valid, return_weights=True,
+                                         generator=generator)
+        tgt = self.norm1(tgt + drop(sa_out))
         b, t, m, d = memory.shape
         ca_out, _ = self.cross_attn_image(
             (tgt + query_pos).reshape(b * t, 1, d), (memory + mem_pos).reshape(b * t, m, d),
             memory.reshape(b * t, m, d), key_valid=mem_valid.reshape(b * t, m),
+            generator=generator,
         )
         ca_out = torch.where(frame_valid[..., None], ca_out.reshape(b, t, d).float(), 0.0)
-        tgt = self.norm3(tgt + ca_out)
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm4(tgt + ff), weights
+        tgt = self.norm3(tgt + drop(ca_out))
+        ff = self.linear2(drop(torch.relu(self.linear1(tgt))))
+        return self.norm4(tgt + drop(ff)), weights
 
 
 class TimeDecoder(nn.Module):
@@ -197,21 +220,23 @@ class TimeDecoder(nn.Module):
     weights [L,B,T,T]."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int, num_layers: int,
-                 dtype=torch.float32, impl: str = "xla"):
+                 dropout: float = 0.0, dtype=torch.float32, impl: str = "xla"):
         super().__init__()
         self.d_model = d_model
         self.norm = LayerNorm(d_model, eps=1e-5)
         self.layers = nn.ModuleList(
-            TimeDecoderLayer(d_model, num_heads, ffn_dim, dtype, impl) for _ in range(num_layers)
+            TimeDecoderLayer(d_model, num_heads, ffn_dim, dropout, dtype, impl)
+            for _ in range(num_layers)
         )
 
-    def forward(self, memory, mem_valid, mem_pos, query_pos, query_time_pos, frame_valid):
+    def forward(self, memory, mem_valid, mem_pos, query_pos, query_time_pos, frame_valid,
+                generator: Optional[torch.Generator] = None):
         b, t = frame_valid.shape
         tgt = torch.zeros(b, t, self.d_model, dtype=torch.float32, device=memory.device)
         states, all_weights = [], []
         for layer in self.layers:
             tgt, weights = layer(tgt, memory, mem_valid, mem_pos, query_pos, query_time_pos,
-                                 frame_valid)
+                                 frame_valid, generator)
             states.append(self.norm(tgt))
             all_weights.append(weights)
         return torch.stack(states), torch.stack(all_weights)

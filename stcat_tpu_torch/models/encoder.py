@@ -5,15 +5,20 @@ tokens, batched over B*T frames; temporal layers attend over
 [video-CLS ; per-frame CLS]; the temporal context is written back into each
 valid frame's CLS slot. Parameter names follow the reference STCAT
 (spatial_layers.N, temporal_layers.N, frame_cls, video_cls, local_pos_embed,
-time_embed).
+time_embed). In training mode dropout (rate ``dropout``) applies at the JAX
+package's positions: the softmax weights, the attention output before its
+residual add, the FFN's hidden activation and its output.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.embeddings import sine_time_embedding
+from ..ops.misc import dropout
 from .attention import Linear, MultiHeadAttention
 from .roberta import LayerNorm
 
@@ -21,21 +26,23 @@ from .roberta import LayerNorm
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer with a ReLU FFN."""
 
-    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, dtype=torch.float32,
-                 impl: str = "xla"):
+    def __init__(self, d_model: int, num_heads: int, ffn_dim: int, dropout: float = 0.0,
+                 dtype=torch.float32, impl: str = "xla"):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype=dtype, impl=impl)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, dtype=dtype, impl=impl)
         self.linear1 = Linear(d_model, ffn_dim, dtype=dtype)
         self.linear2 = Linear(ffn_dim, d_model, dtype=dtype)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, pos, valid):
+    def forward(self, x, pos, valid, generator: Optional[torch.Generator] = None):
+        drop = lambda h: dropout(h, self.dropout, self.training, generator)  # noqa: E731
         qk = x + pos
-        attn, _ = self.self_attn(qk, qk, x, key_valid=valid)
-        x = self.norm1(x + attn)
-        h = self.linear2(torch.relu(self.linear1(x)))
-        return self.norm2(x + h)
+        attn, _ = self.self_attn(qk, qk, x, key_valid=valid, generator=generator)
+        x = self.norm1(x + drop(attn))
+        h = self.linear2(drop(torch.relu(self.linear1(x))))
+        return self.norm2(x + drop(h))
 
 
 class TimeEmbedding(nn.Module):
@@ -59,9 +66,10 @@ class CrossModalEncoder(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int, num_layers: int,
                  max_video_len: int, learned_time_embed: bool = False,
-                 dtype=torch.float32, impl: str = "xla"):
+                 dtype=torch.float32, impl: str = "xla", dropout: float = 0.0):
         super().__init__()
-        layer = lambda: TransformerEncoderLayer(d_model, num_heads, ffn_dim, dtype, impl)
+        layer = lambda: TransformerEncoderLayer(d_model, num_heads, ffn_dim, dropout,  # noqa: E731
+                                                dtype, impl)
         self.spatial_layers = nn.ModuleList(layer() for _ in range(num_layers))
         self.temporal_layers = nn.ModuleList(layer() for _ in range(num_layers))
         self.frame_cls = nn.Embedding(1, d_model)
@@ -69,7 +77,8 @@ class CrossModalEncoder(nn.Module):
         self.local_pos_embed = nn.Embedding(1, d_model)
         self.time_embed = TimeEmbedding(max_video_len + 1, d_model, learned_time_embed)
 
-    def forward(self, vis_feats, vis_valid, vis_pos, text_feats, text_valid, frame_valid):
+    def forward(self, vis_feats, vis_valid, vis_pos, text_feats, text_valid, frame_valid,
+                generator: Optional[torch.Generator] = None):
         b, t, hf, wf, d = vis_feats.shape
         l, hw = text_feats.shape[1], hf * wf
         dev = vis_feats.device
@@ -99,9 +108,9 @@ class CrossModalEncoder(nn.Module):
         pos_f, valid_f = pos.reshape(b * t, s, d), valid.reshape(b * t, s)
 
         for spatial, temporal in zip(self.spatial_layers, self.temporal_layers):
-            x = spatial(x.reshape(b * t, s, d), pos_f, valid_f).reshape(b, t, s, d)
+            x = spatial(x.reshape(b * t, s, d), pos_f, valid_f, generator).reshape(b, t, s, d)
             seq = torch.cat([video_cls[:, None], x[:, :, 0]], dim=1)  # [B, T+1, d]
-            seq = temporal(seq, time_pos, temp_valid)
+            seq = temporal(seq, time_pos, temp_valid, generator)
             video_cls = seq[:, 0]
             # temporal context back into each VALID frame's CLS slot
             new_cls = torch.where(frame_valid[..., None], seq[:, 1:], x[:, :, 0])

@@ -13,6 +13,14 @@ through the fused kernel when TPU.CONV_IMPL is "pallas", with FrozenBN folded
 into the conv weights as ``stcat_tpu``'s ``Bottleneck._fused`` does; the
 stem, the stride-2 first blocks and the GroupNorm variant use
 ``F.conv2d``.
+
+Training: the stem and the first ``frozen_stages`` stages (1, or 4 when the
+whole body is frozen) run without gradients, where the JAX package puts its
+stop_gradient, so their backward never runs. With ``remat_blocks`` the
+unfused blocks of ``remat_stages`` past the frozen prefix are recomputed in
+the backward (``torch.utils.checkpoint``); a fused block is not, because
+its autograd Function already keeps only its input and recomputes the block
+in its backward (remat there would recompute it twice).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import bottleneck as kbottle
@@ -135,9 +144,12 @@ class ResNet(nn.Module):
 
     def __init__(self, depths: Sequence[int] = (3, 4, 23, 3), dc5: bool = False,
                  dtype=torch.float32, conv_impl: str = "xla",
-                 conv_stages: Sequence[int] = (1, 2, 3, 4), norm: str = "frozenbn"):
+                 conv_stages: Sequence[int] = (1, 2, 3, 4), norm: str = "frozenbn",
+                 frozen_stages: int = 1, remat_blocks: bool = False,
+                 remat_stages: Sequence[int] = (1, 2, 3, 4)):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.frozen_stages = dtype, frozen_stages
+        self.remat_blocks, self.remat_stages = remat_blocks, tuple(remat_stages)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _norm(norm, 64)
         planes = (64, 128, 256, 512)
@@ -156,18 +168,34 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(depths)
 
+    def _stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        remat = (self.remat_blocks and (i + 1) in self.remat_stages
+                 and torch.is_grad_enabled())
+        for block in getattr(self, f"layer{i + 1}"):
+            if remat and not block.fused:
+                x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
+        return x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, 3] -> [N, H/32, W/32, 2048] (NHWC, compute dtype)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = torch.relu(self.bn1(_conv(x, self.conv1, self.dtype)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for i in range(self.num_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+        frozen = min(self.frozen_stages, self.num_stages)
+        with torch.no_grad():  # the frozen prefix
+            x = torch.relu(self.bn1(_conv(x, self.conv1, self.dtype)))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            for i in range(frozen):
+                x = self._stage(i, x)
+        for i in range(frozen, self.num_stages):
+            x = self._stage(i, x)
         return x.permute(0, 2, 3, 1)
 
 
 def build_resnet(name: str, dc5: bool, dtype=torch.float32, depths: Sequence[int] = (),
-                 conv_impl: str = "xla", conv_stages: Sequence[int] = (1, 2, 3, 4)) -> ResNet:
+                 conv_impl: str = "xla", conv_stages: Sequence[int] = (1, 2, 3, 4),
+                 frozen_stages: int = 1, remat_blocks: bool = False,
+                 remat_stages: Sequence[int] = (1, 2, 3, 4)) -> ResNet:
     norm = "frozenbn"
     if name.endswith("-gn"):
         norm, name = "gn", name[: -len("-gn")]
@@ -179,7 +207,8 @@ def build_resnet(name: str, dc5: bool, dtype=torch.float32, depths: Sequence[int
         else:
             raise ValueError(f"unsupported backbone {name}")
     return ResNet(depths=tuple(depths), dc5=dc5, dtype=dtype, conv_impl=conv_impl,
-                  conv_stages=tuple(conv_stages), norm=norm)
+                  conv_stages=tuple(conv_stages), norm=norm, frozen_stages=frozen_stages,
+                  remat_blocks=remat_blocks, remat_stages=remat_stages)
 
 
 def downsample_mask(pixel_mask: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -7,11 +7,18 @@ The forward takes a fixed-shape VideoBatch and returns
 follow the reference STCAT state_dict (vis_encoder.0.body.*, input_proj,
 text_encoder.body/resizer, ground_encoder.encoder.*, ground_decoder.*,
 bbox_embed, temp_embed, action_embed).
+
+``model.train()`` turns dropout on (``MODEL.STCAT.DROPOUT`` in the encoder
+and decoders, ``HEAD_DROPOUT`` in the temp/action heads,
+``TEXT_MODEL.DROPOUT`` in RoBERTa and the resizer); every keep mask is drawn
+from the generator handed to ``forward`` (``model(batch, generator=g)``),
+and a training forward that would draw a mask without one raises. In eval
+mode nothing is drawn.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -63,9 +70,15 @@ class STCATNet(nn.Module):
         d = self.d_model = s.HIDDEN
         dtype = self.compute_dtype = _dtype(c.TPU.COMPUTE_DTYPE)
         vb = c.MODEL.VISION_BACKBONE
+        # the whole body is frozen with the backbone (VIS_BACKBONE_LR 0 too);
+        # otherwise the stem and layer1
+        frozen_stages = 4 if (vb.FREEZE or c.SOLVER.VIS_BACKBONE_LR <= 0) else 1
         self.vis_encoder = nn.ModuleList([
             _Backbone(build_resnet(vb.NAME, vb.DILATION, dtype=dtype, depths=vb.DEPTHS,
-                                   conv_impl=c.TPU.CONV_IMPL, conv_stages=c.TPU.CONV_STAGES)),
+                                   conv_impl=c.TPU.CONV_IMPL, conv_stages=c.TPU.CONV_STAGES,
+                                   frozen_stages=frozen_stages,
+                                   remat_blocks=c.TPU.REMAT_BACKBONE,
+                                   remat_stages=c.TPU.REMAT_STAGES)),
             PositionEncoding2D(vb.POS_ENC, d // 2),
         ])
         self.input_proj = nn.Conv2d(2048, d, 1)
@@ -73,30 +86,31 @@ class STCATNet(nn.Module):
         self.text_encoder = TextEncoder(d, RobertaConfig(
             vocab_size=tm.VOCAB_SIZE, hidden_size=tm.HIDDEN, num_layers=tm.LAYERS,
             num_heads=tm.HEADS, intermediate_size=tm.INTERMEDIATE,
-            max_position_embeddings=tm.MAX_POS,
-        ), dtype)
+            max_position_embeddings=tm.MAX_POS, dropout=tm.DROPOUT,
+        ), dtype, freeze_body=tm.FREEZE)
         impl = c.TPU.ATTENTION_IMPL
         self.ground_encoder = _GroundEncoder(CrossModalEncoder(
             d, s.HEADS, s.FFN_DIM, s.ENC_LAYERS, c.INPUT.MAX_VIDEO_LEN,
-            s.USE_LEARN_TIME_EMBED, dtype, impl,
+            s.USE_LEARN_TIME_EMBED, dtype, impl, dropout=s.DROPOUT,
         ))
         self.ground_decoder = _GroundDecoder(
             TemplateGenerator(d, s.QUERY_DIM),
-            SpatialDecoder(d, s.HEADS, s.FFN_DIM, s.DEC_LAYERS, s.QUERY_DIM,
+            SpatialDecoder(d, s.HEADS, s.FFN_DIM, s.DEC_LAYERS, s.QUERY_DIM, s.DROPOUT,
                            s.FROM_SCRATCH, dtype, impl),
-            TimeDecoder(d, s.HEADS, s.FFN_DIM, s.DEC_LAYERS, dtype, impl),
+            TimeDecoder(d, s.HEADS, s.FFN_DIM, s.DEC_LAYERS, s.DROPOUT, dtype, impl),
             TimeEmbedding(c.INPUT.MAX_VIDEO_LEN + 1, d, s.USE_LEARN_TIME_EMBED),
         )
         self.bbox_embed = MLP(d, d, 4, 3)
-        self.temp_embed = MLP(d, d, 2, 2)
+        self.temp_embed = MLP(d, d, 2, 2, dropout=s.HEAD_DROPOUT)
         self.use_actioness = s.USE_ACTION
         if self.use_actioness:
-            self.action_embed = MLP(d, d, 1, 2)
+            self.action_embed = MLP(d, d, 1, 2, dropout=s.HEAD_DROPOUT)
         self.use_attn = c.SOLVER.USE_ATTN
         self.use_aux_loss = c.SOLVER.USE_AUX_LOSS
         self.query_dim = s.QUERY_DIM
 
-    def forward(self, batch: VideoBatch) -> Dict[str, Any]:
+    def forward(self, batch: VideoBatch,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         b, t, h, w, _ = batch.frames.shape
         d, dt = self.d_model, self.compute_dtype
         frame_valid = batch.frame_valid.bool()
@@ -110,9 +124,10 @@ class STCATNet(nn.Module):
         vis_valid = downsample_mask(batch.pixel_valid.bool(), (hf, wf))
         vis_pos = self.vis_encoder[1](vis_valid)
 
-        text_feats, text_cls = self.text_encoder(batch.token_ids, batch.token_valid)
+        text_feats, text_cls = self.text_encoder(batch.token_ids, batch.token_valid, generator)
         memory, mem_valid, frames_cls, videos_cls = self.ground_encoder.encoder(
             feats, vis_valid, vis_pos, text_feats, batch.token_valid.bool(), frame_valid,
+            generator,
         )
         l = text_feats.shape[1]
         mem_pos = torch.cat([
@@ -128,18 +143,18 @@ class STCATNet(nn.Module):
         query_time = gd.time_embed(t, feats.device)[None].expand(b, t, d)
 
         hs, reference = gd.decoder(anchors, memory, mem_valid, mem_pos, query_time,
-                                   frame_valid, self.bbox_embed)
+                                   frame_valid, self.bbox_embed, generator)
         time_hs, attn_weights = gd.temp_decoder(memory, mem_valid, mem_pos, content_query,
-                                                query_time, frame_valid)
+                                                query_time, frame_valid, generator)
 
-        delta = self.bbox_embed(hs)
+        delta = self.bbox_embed(hs, generator)
         coords = torch.sigmoid(delta[..., : self.query_dim] + inverse_sigmoid(reference))
-        sted = self.temp_embed(time_hs)
+        sted = self.temp_embed(time_hs, generator)
         out: Dict[str, Any] = {"pred_boxes": coords[-1], "pred_sted": sted[-1]}
         if self.use_attn:
             out["weights"] = attn_weights[-1]
         if self.use_actioness:
-            actioness = self.action_embed(time_hs)
+            actioness = self.action_embed(time_hs, generator)
             out["pred_actioness"] = actioness[-1]
         if self.use_aux_loss:
             aux = []

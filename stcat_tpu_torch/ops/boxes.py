@@ -1,4 +1,5 @@
-"""Box format conversions on [..., 4] tensors."""
+"""Box format conversions and aligned (frame-by-frame) IoU / GIoU on
+[..., 4] tensors."""
 
 from __future__ import annotations
 
@@ -13,3 +14,29 @@ def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
 def box_xyxy_to_cxcywh(x: torch.Tensor) -> torch.Tensor:
     x0, y0, x1, y1 = x.unbind(-1)
     return torch.stack([(x0 + x1) * 0.5, (y0 + y1) * 0.5, x1 - x0, y1 - y0], dim=-1)
+
+
+def _area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou_pairwise(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """IoU of aligned xyxy boxes [..., 4]; returns (iou, union), each [...]."""
+    area1, area2 = _area(boxes1), _area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1 + area2 - inter
+    return inter / union.clamp(min=1e-12), union
+
+
+def generalized_box_iou_pairwise(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """GIoU of aligned xyxy boxes [..., 4], the enclosing area clamped away
+    from 0 instead of asserting non-degenerate boxes."""
+    iou, union = box_iou_pairwise(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-12)

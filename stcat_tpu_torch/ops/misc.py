@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # Large negative used to kill attention/softmax logits at padded positions
@@ -27,3 +29,17 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - p and scale
+    it by 1 / (1 - p), the keep mask drawn from ``generator`` (on x's
+    device). The identity unless ``training`` and p > 0; then a generator
+    is required, so that every mask can be drawn again."""
+    if not training or p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), x.new_zeros(()))

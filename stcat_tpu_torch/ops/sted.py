@@ -1,10 +1,25 @@
-"""Temporal (start, end) decoding."""
+"""Temporal (start, end) training target and decoding."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .misc import NEG_INF
+
+
+def gaussian_sted_target(t: int, target_idx: torch.Tensor, sigma: float,
+                         time_mask: Optional[torch.Tensor] = None,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """L1-normalized gaussian over the time axis centred at target_idx [...]
+    (integer frame index); with time_mask [..., t] it is zeroed and
+    renormalized over the valid frames. Returns [..., t] fp32."""
+    pos = torch.arange(t, dtype=torch.float32, device=target_idx.device)
+    g = torch.exp(-((pos - target_idx[..., None].float()) ** 2) / (2.0 * sigma ** 2)) + eps
+    if time_mask is not None:
+        g = g * time_mask.float()
+    return g / g.sum(-1, keepdim=True).clamp(min=1e-12)
 
 
 def decode_sted(pred_sted: torch.Tensor, time_mask: torch.Tensor):

@@ -144,8 +144,8 @@ class GroundingPredictor:
 
         t_bucket = pick_bucket(max(s["frames_u8"].shape[0] for s in s0 + s1),
                                self.cfg.TPU.FRAME_BUCKETS)
-        raw, meta = build_raw_batch(s0 + s1, t_bucket, self.tokenizer,
-                                    self.cfg.INPUT.MAX_QUERY_LEN)
+        raw, _, meta = build_raw_batch(s0 + s1, t_bucket, self.tokenizer,
+                                       self.cfg.INPUT.MAX_QUERY_LEN)
         return raw, meta[: len(s0)], meta[len(s0):]
 
 

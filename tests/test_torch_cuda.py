@@ -1,6 +1,8 @@
-"""Card-only tests of the port: the CUDA kernels against their plain versions,
-and the tiny model's kernel forward on the card against its plain forward on
-the CPU. Every test here is marked ``cuda`` and skips without a card.
+"""Card-only tests of the port: the CUDA kernels (K1 attention forward, K2
+attention backward, K3 bottleneck) against their plain versions, the two
+autograd Functions' gradients against autograd through the plain versions,
+and the tiny model's forward and training gradients on the card against the
+same on the CPU. Every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and numpy only, so it also runs where JAX is not
 installed (the machine with the card):
@@ -31,6 +33,21 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def tiny_cfg(extra=()):
+    """The port's config at tiny widths, fp32, every kernel route on."""
+    from stcat_tpu_torch.config import default_config, merge_from_list
+
+    return merge_from_list(default_config(), [
+        "MODEL.VISION_BACKBONE.NAME", "resnet50", "MODEL.VISION_BACKBONE.DEPTHS", "[1,1,1,1]",
+        "MODEL.STCAT.ENC_LAYERS", 2, "MODEL.STCAT.DEC_LAYERS", 2, "MODEL.STCAT.HIDDEN", 64,
+        "MODEL.STCAT.HEADS", 4, "MODEL.STCAT.FFN_DIM", 128, "INPUT.MAX_VIDEO_LEN", 32,
+        "MODEL.TEXT_MODEL.VOCAB_SIZE", 128, "MODEL.TEXT_MODEL.HIDDEN", 32,
+        "MODEL.TEXT_MODEL.LAYERS", 2, "MODEL.TEXT_MODEL.HEADS", 2,
+        "MODEL.TEXT_MODEL.INTERMEDIATE", 64, "MODEL.TEXT_MODEL.MAX_POS", 64,
+        "TPU.COMPUTE_DTYPE", "float32", "TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]",
+    ] + list(extra))
 
 
 def _rel_err(out, ref):
@@ -91,6 +108,90 @@ def test_fused_bottleneck_kernel_matches_plain(dev, dtype, tol, n, h, w, cin, p,
     assert _rel_err(out, ref) <= tol
 
 
+def _attn_inputs(dev, dtype, bh, sq, sk, dk, dv, seed=0):
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev, dtype)
+                  for s in ((bh, sq, dk), (bh, sk, dk), (bh, sk, dv), (bh, sq, dv)))
+    bias = torch.zeros(bh, sk, device=dev)
+    bias[:, sk - 7:] = -1e30
+    bias[1, :] = -1e30  # fully masked row: uniform weights over the real keys
+    return q, k, v, bias, g
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("bh,sq,sk,dk,dv", [
+    (4, 37, 53, 32, 32),     # two-pass, ragged Sq and Sk
+    (8, 1, 223, 32, 32),     # row kernel
+    (8, 1, 53, 64, 32),      # row kernel, Dk = 2 Dv (concat cross-attention)
+    (3, 7, 40, 100, 70),     # row kernel at its largest Sq, odd widths
+    (3, 9, 40, 70, 100),     # two-pass, Dv > Dk
+    (2, 40, 17, 128, 128),   # widest heads, fewer keys than a tile
+    (8, 65, 65, 32, 32),     # encoder temporal
+    (64, 293, 293, 32, 32),  # encoder spatial
+])
+def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, tol, bh, sq, sk, dk, dv):
+    q, k, v, bias, g = _attn_inputs(dev, dtype, bh, sq, sk, dk, dv)
+    before = pka.BWD_LAUNCHES.count
+    out = pka.flash_attention_bwd(q, k, v, bias, g)
+    assert pka.BWD_LAUNCHES.count == before + 1
+    ref = pka.attention_bwd_plain(q, k, v, bias, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_flash_attention_function_grads_on_card(dev, dtype, tol):
+    """autograd through the Function (K1 forward, K2 backward) against
+    autograd through attention_plain."""
+    q, k, v, bias, g = _attn_inputs(dev, dtype, 6, 37, 53, 64, 32, seed=1)
+    grads = []
+    for fn in (pka.flash_attention, pka.attention_plain):
+        ts = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        fn(*ts).backward(g)
+        grads.append([t.grad for t in ts])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), *grads):
+        assert _rel_err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_fused_bottleneck_function_grads_on_card(dev, dtype, tol):
+    """The Function's backward (a bottleneck_plain recompute under autograd)
+    after a K3 forward, against autograd through bottleneck_plain."""
+    rng = np.random.RandomState(3)
+    n, h, w, cin, p = 2, 10, 12, 64, 16
+    shapes = {"w1": (cin, p), "b1": (1, 1, p), "w2": (3, 3, p, p), "b2": (1, 1, p),
+              "w3": (p, 4 * p), "b3": (1, 1, 4 * p), "wd": (cin, 4 * p), "bd": (1, 1, 4 * p)}
+    arrays = {k: (rng.randn(*s) * 0.1).astype(np.float32) for k, s in shapes.items()}
+    x0 = rng.randn(n, h, w, cin).astype(np.float32)
+    g = torch.from_numpy(rng.randn(n, h, w, 4 * p).astype(np.float32)).to(dev, dtype)
+    grads = []
+    for fn in (pkb.fused_bottleneck, pkb.bottleneck_plain):
+        x = torch.from_numpy(x0).to(dev, dtype).requires_grad_()
+        bw = pkb.BlockWeights(**{k: torch.from_numpy(a).to(dev).requires_grad_()
+                                 for k, a in arrays.items()})
+        fn(x, bw, 1).backward(g)
+        grads.append([x.grad] + [t.grad for t in bw])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x",) + pkb.BlockWeights._fields, *grads):
+        assert _rel_err(a, b) <= tol, name
+
+
+def test_flash_attention_bwd_refuses_bad_inputs(dev):
+    q, k, v, bias, g = _attn_inputs(dev, torch.float32, 2, 9, 11, 16, 8)
+    with pytest.raises(ValueError, match="g must be"):
+        pka.flash_attention_bwd(q, k, v, bias, g.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="g must be"):
+        pka.flash_attention_bwd(q, k, v, bias, g[:, :5])
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        pka.flash_attention_bwd(q.half(), k.half(), v.half(), bias, g.half())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        pka.flash_attention_bwd(q, k[:, :5], v, bias, g)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(2, 3, 16, device=dev)
     bias = torch.zeros(2, 5, device=dev)
@@ -113,19 +214,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 def test_tiny_model_kernel_forward_matches_cpu_plain_forward(dev):
     """The whole port at tiny widths: STCATNet with every kernel route on,
     kernels on the card against the plain versions on the CPU, fp32."""
-    from stcat_tpu_torch.config import default_config, merge_from_list
     from stcat_tpu_torch.core.batch import VideoBatch
     from stcat_tpu_torch.models import build_model
 
-    cfg = merge_from_list(default_config(), [
-        "MODEL.VISION_BACKBONE.NAME", "resnet50", "MODEL.VISION_BACKBONE.DEPTHS", "[1,1,1,1]",
-        "MODEL.STCAT.ENC_LAYERS", 2, "MODEL.STCAT.DEC_LAYERS", 2, "MODEL.STCAT.HIDDEN", 64,
-        "MODEL.STCAT.HEADS", 4, "MODEL.STCAT.FFN_DIM", 128, "INPUT.MAX_VIDEO_LEN", 32,
-        "MODEL.TEXT_MODEL.VOCAB_SIZE", 128, "MODEL.TEXT_MODEL.HIDDEN", 32,
-        "MODEL.TEXT_MODEL.LAYERS", 2, "MODEL.TEXT_MODEL.HEADS", 2,
-        "MODEL.TEXT_MODEL.INTERMEDIATE", 64, "MODEL.TEXT_MODEL.MAX_POS", 64,
-        "TPU.COMPUTE_DTYPE", "float32", "TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]",
-    ])
+    cfg = tiny_cfg()
     rng = np.random.RandomState(2)
     b, t, h, w, l = 2, 6, 64, 64, 7
     frame_valid = np.ones((b, t), bool)
@@ -151,3 +243,57 @@ def test_tiny_model_kernel_forward_matches_cpu_plain_forward(dev):
     for key in ("pred_boxes", "pred_sted", "pred_actioness", "weights"):
         np.testing.assert_allclose(outs["cuda"][key].cpu().numpy(), outs["cpu"][key].numpy(),
                                    atol=2e-4, rtol=1e-3, err_msg=key)
+
+
+def test_tiny_model_training_gradients_on_card_match_cpu(dev):
+    """One training forward+backward of the tiny model (layer2 with a
+    trainable fused block, every kernel route on, fp32, no dropout): the
+    card (K1, K2, K3 and the K3 recompute) against the CPU's plain versions.
+    Loss at rtol 1e-4; every gradient at atol 2e-4 / rtol 1e-3, the model
+    parity tolerance."""
+    from stcat_tpu_torch.core.batch import VideoBatch, VideoTargets
+    from stcat_tpu_torch.models import build_model
+    from stcat_tpu_torch.train.optimizer import make_optimizer
+    from stcat_tpu_torch.train.step import accumulate_grads
+
+    cfg = tiny_cfg(["MODEL.VISION_BACKBONE.DEPTHS", "[1,2,1,1]", "MODEL.STCAT.DROPOUT", 0.0,
+                    "MODEL.STCAT.HEAD_DROPOUT", 0.0, "MODEL.TEXT_MODEL.DROPOUT", 0.0,
+                    "TPU.GRAD_ACCUM", 2])
+    rng = np.random.RandomState(4)
+    b, t, h, w, l = 2, 6, 64, 64, 7
+    frame_valid = np.ones((b, t), bool)
+    frame_valid[1, 4:] = False
+    actioness = np.zeros((b, t), np.float32)
+    actioness[0, 1:4] = 1.0
+    actioness[1, 2] = 1.0
+    box_valid = actioness.astype(bool)
+    batch = dict(frames=rng.randn(b, t, h, w, 3).astype(np.float32), frame_valid=frame_valid,
+                 pixel_valid=np.ones((b, t, h, w), bool), token_ids=rng.randint(3, 100, (b, l)),
+                 token_valid=np.ones((b, l), bool))
+    targets = dict(boxes=rng.uniform(0.2, 0.6, (b, t, 4)).astype(np.float32) * box_valid[..., None],
+                   box_valid=box_valid, actioness=actioness,
+                   temp_bound=np.asarray([[1, 3], [2, 2]], np.int32))
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, device=device, seed=0)
+        opt = make_optimizer(cfg, model, num_training_steps=10)
+        counts = (pka.LAUNCHES.count, pka.BWD_LAUNCHES.count, pkb.LAUNCHES.count)
+        losses = accumulate_grads(
+            cfg, model, opt, VideoBatch(**{k: torch.from_numpy(v).to(device) for k, v in batch.items()}),
+            VideoTargets(**{k: torch.from_numpy(v).to(device) for k, v in targets.items()}))
+        launched = tuple(c1 - c0 for c0, c1 in zip(counts, (pka.LAUNCHES.count,
+                                                             pka.BWD_LAUNCHES.count,
+                                                             pkb.LAUNCHES.count)))
+        # per microbatch: 8 attention calls (K1, each with a K2 in the backward)
+        # and layer1's + layer2's stride-1 blocks (K3)
+        assert launched == ((0, 0, 0) if device == "cpu" else (16, 16, 4))
+        results[device] = (losses["loss"].item(),
+                           {n: p.grad for n, p in model.named_parameters()})
+    (loss_c, grads_c), (loss_g, grads_g) = results["cpu"], results["cuda"]
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    for name, g in grads_c.items():
+        if g is None:
+            assert grads_g[name] is None, name
+            continue
+        np.testing.assert_allclose(grads_g[name].cpu().numpy(), g.numpy(), atol=2e-4, rtol=1e-3,
+                                   err_msg=name)

@@ -1,10 +1,14 @@
 """Port kernels: the plain PyTorch versions against the JAX package's kernels.
 
 ``attention_plain`` is held against ``_xla_attention`` and against the Pallas
-``_flash_fwd`` run in interpret mode; ``bottleneck_plain`` against
-``bottleneck_reference`` and the interpreted ``_fused_fwd``. Inputs are numpy
-arrays from a seed handed to both. Tolerance: fp32, atol 2e-5, as in
-tests/test_kernels.py (summation order only).
+``_flash_fwd`` run in interpret mode; ``attention_bwd_plain`` against the
+Pallas ``_flash_bwd`` in interpret mode and against ``jax.vjp`` of
+``_xla_attention``; ``bottleneck_plain`` against ``bottleneck_reference`` and
+the interpreted ``_fused_fwd``; the two autograd Functions' gradients on CPU
+tensors against autograd through the plain versions and against ``jax.vjp``
+of the JAX package's ``fused_bottleneck``. Inputs are numpy arrays from a
+seed handed to both. Tolerance: fp32, atol 2e-5, as in tests/test_kernels.py
+(summation order only).
 
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 compares them with their plain versions there.
@@ -84,6 +88,58 @@ def test_attention_wrapper_on_cpu_runs_plain_without_launch():
     torch.testing.assert_close(out, pka.attention_plain(q, k, v, bias), rtol=0, atol=0)
 
 
+BWD_CASES = [  # Sq not a multiple of 8, Sk not of 128, Dk != Dv both ways
+    (4, 37, 53, 32, 32),
+    (8, 1, 223, 32, 32),
+    (8, 1, 53, 64, 32),
+    (2, 13, 140, 16, 24),
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,dk,dv", BWD_CASES)
+def test_attention_bwd_plain_matches_pallas_flash_bwd(bh, sq, sk, dk, dv):
+    q, k, v, bias = attn_inputs(bh, sq, sk, dk, dv)
+    g = np.random.RandomState(1).randn(bh, sq, dv).astype(np.float32)
+    ours = pka.attention_bwd_plain(*map(torch.from_numpy, (q, k, v, bias, g)))
+    theirs = ka._flash_bwd(*map(jnp.asarray, (q, k, v, bias, g)))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), ours, theirs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("bh,sq,sk,dk,dv", [(4, 5, 20, 32, 32), (4, 1, 20, 64, 32)])
+def test_attention_bwd_plain_matches_xla_vjp_with_fully_masked_rows(bh, sq, sk, dk, dv):
+    """Row 1 of every head has all keys masked: its weights are uniform over
+    the real keys and its gradients are those of _xla_attention (the Pallas
+    backward would spread them over its padded keys too)."""
+    q, k, v, bias = attn_inputs(bh, sq, sk, dk, dv, full_row=True)
+    g = np.random.RandomState(2).randn(bh, sq, dv).astype(np.float32)
+    ours = pka.attention_bwd_plain(*map(torch.from_numpy, (q, k, v, bias, g)))
+    _, vjp = jax.vjp(ka._xla_attention, *map(jnp.asarray, (q, k, v, bias)))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), ours, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("bh,sq,sk,dk,dv", ATTN_CASES)
+def test_attention_function_grads_on_cpu_match_autograd_through_plain(bh, sq, sk, dk, dv):
+    arrays = attn_inputs(bh, sq, sk, dk, dv, full_row=True)
+    g = torch.from_numpy(np.random.RandomState(3).randn(bh, sq, dv).astype(np.float32))
+    grads = []
+    for fn in (pka.flash_attention, pka.attention_plain):
+        ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        fn(*ts).backward(g)
+        grads.append([t.grad for t in ts])
+    assert pka.LAUNCHES.count == pka.BWD_LAUNCHES.count == 0
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), *grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL, msg=name)
+
+
+def test_attention_function_skips_dbias_unless_asked():
+    q, k, v, bias = (torch.from_numpy(a) for a in attn_inputs(2, 7, 11, 16, 8))
+    q.requires_grad_()
+    pka.flash_attention(q, k, v, bias).sum().backward()
+    assert q.grad is not None and bias.grad is None
+
+
 def make_block(rng, cin, p, ds, scale=0.1):
     cout = 4 * p
     mk = lambda *s: rng.randn(*s).astype(np.float32) * scale
@@ -117,6 +173,48 @@ def test_bottleneck_plain_matches_reference_and_pallas(n, h, w, cin, p, ds, dil)
     jx, jb = jnp.asarray(x), _jax_block(arrs)
     np.testing.assert_allclose(ours, np.asarray(kconv.bottleneck_reference(jx, jb, dil)), atol=ATOL)
     np.testing.assert_allclose(ours, np.asarray(kconv._fused_fwd(jx, jb, dil)), atol=ATOL)
+
+
+@pytest.mark.parametrize("n,h,w,cin,p,ds,dil", BOTTLENECK_CASES)
+def test_bottleneck_function_grads_match_jax_vjp(n, h, w, cin, p, ds, dil):
+    """The Function's backward (a recompute of bottleneck_plain under
+    autograd) against jax.vjp of the JAX package's fused_bottleneck, whose
+    forward is the interpreted Pallas kernel and whose backward is its
+    _vjp_bwd recompute of bottleneck_reference."""
+    rng = np.random.RandomState(4)
+    arrs = make_block(rng, cin, p, ds)
+    x = (rng.randn(n, h, w, cin) * 0.5).astype(np.float32)
+    g = rng.randn(n, h, w, 4 * p).astype(np.float32)
+    out, vjp = jax.vjp(lambda x_, p_: kconv.fused_bottleneck(x_, p_, dil), jnp.asarray(x),
+                       _jax_block(arrs))
+    dx_j, dp_j = vjp(jnp.asarray(g))
+
+    tx = torch.from_numpy(x).requires_grad_()
+    bw = pkb.BlockWeights(**{k: None if v is None else torch.from_numpy(v).requires_grad_()
+                             for k, v in arrs.items()})
+    ours = pkb.fused_bottleneck(tx, bw, dil)
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(out), atol=ATOL)
+    ours.backward(torch.from_numpy(g))
+    assert pkb.LAUNCHES.count == 0
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dx_j), atol=ATOL, err_msg="dx")
+    for name in pkb.BlockWeights._fields:
+        ours_w, theirs_w = getattr(bw, name), getattr(dp_j, name)
+        if ours_w is None:
+            assert theirs_w is None
+            continue
+        # weight grads sum over N*H*W positions: atol scaled by the largest
+        scale = max(1.0, float(np.abs(np.asarray(theirs_w)).max()))
+        np.testing.assert_allclose(ours_w.grad.numpy(), np.asarray(theirs_w), atol=ATOL * scale,
+                                   err_msg=name)
+
+
+def test_bottleneck_function_grads_only_for_what_requires_them():
+    rng = np.random.RandomState(5)
+    bw = _port_block(make_block(rng, 16, 8, True))
+    bw.w2.requires_grad_()
+    x = torch.from_numpy(rng.randn(1, 5, 4, 16).astype(np.float32))
+    pkb.fused_bottleneck(x, bw, 1).sum().backward()
+    assert bw.w2.grad is not None and x.grad is None and bw.w1.grad is None
 
 
 def test_bottleneck_plain_matches_pallas_row_chunks(monkeypatch):

@@ -126,12 +126,14 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'stcat_tpu'))\n"
         "assert not bad, bad\n"
+        "for m in ('train.criterion', 'train.optimizer', 'train.step'):\n"
+        "    assert 'stcat_tpu_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('stcat_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25  # every submodule was imported
+    assert int(res.stdout.strip()) >= 29  # every submodule was imported
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

@@ -290,15 +290,18 @@ def _raw_samples(transform_plan, flip_lane=1):
     rng = np.random.RandomState(4)
     sizes = [(5, 48, 64), (3, 40, 30), (4, 50, 70)]
     samples = []
-    for i, (t, h, w) in enumerate(sizes):
+    spans = [(1, 3), (0, 2), (2, 2)]
+    for i, ((t, h, w), (s, e)) in enumerate(zip(sizes, spans)):
         plan = transform_plan((h, w))
         if i == flip_lane:
             plan = dataclasses.replace(plan, flip=True)
+        actioness = np.zeros(t, np.float32)
+        actioness[s: e + 1] = 1.0
         samples.append({
             "frames_u8": rng.randint(0, 256, (t, h, w, 3), dtype=np.uint8), "plan": plan,
             "text": f"clip {i} moves left", "item_id": i, "frame_ids": list(range(t)),
-            "ori_size": (h, w), "actioness": np.ones(t, np.float32),
-            "boxes_cxcywh": np.zeros((t, 4), np.float32),
+            "ori_size": (h, w), "actioness": actioness,
+            "boxes_cxcywh": rng.uniform(0.1, 0.9, (e - s + 1, 4)).astype(np.float32),
         })
     return samples
 
@@ -321,10 +324,13 @@ def test_raw_batch_and_rgb_preprocess_with_flipped_lane():
     for hw in ((48, 64), (40, 30), (50, 70), (64, 64)):
         assert dataclasses.asdict(pplan(hw)) == dataclasses.asdict(jplan(hw))
 
-    jraw, _, jmeta = j_build(_raw_samples(jplan), 8, JTok(128), 10)
-    praw, pmeta = p_build(_raw_samples(pplan), 8, PTok(128), 10)
+    jraw, jtargets, jmeta = j_build(_raw_samples(jplan), 8, JTok(128), 10)
+    praw, ptargets, pmeta = p_build(_raw_samples(pplan), 8, PTok(128), 10)
     for f in dataclasses.fields(PRaw):
         a, b = getattr(praw, f.name), getattr(jraw, f.name)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f.name)
+    for f in dataclasses.fields(ptargets):
+        a, b = getattr(ptargets, f.name), getattr(jtargets, f.name)
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f.name)
     assert pmeta == [{k: m[k] for k in pmeta[0]} for m in jmeta]
 
