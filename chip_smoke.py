@@ -4,14 +4,19 @@
 
 Phases (any failure exits non-zero; no phase's error is caught):
   1. device: require CUDA, print the card's name and power limit, the torch
-     and CUDA versions, and build every kernel (one nvcc per source, in
-     parallel);
+     and CUDA versions, build every kernel (one nvcc per source, in
+     parallel) and print ptxas's registers, spills and shared memory per
+     kernel;
   2. kernels: each hand-written kernel against its plain PyTorch version, in
      bf16 and fp32, with kernel / plain / library times and the card's bound
-     for the same work: K1 (attention forward) and K3 (bottleneck) at the
+     for the same work: K1 (attention forward) and K3 (bottleneck; bf16 on
+     its tensor-core kernel, fp32 on its CUDA-core one; per stage also its
+     TFLOP/s, share of the bound and ratio to the cuDNN sequence) at the
      serving path's shapes (4 lanes x 64 frames, canvas 448x608, 14x19
      feature grid, L = 26), K2 (attention backward) at the training path's
-     (one 64-frame clip per microbatch);
+     (one 64-frame clip per microbatch); and the reading behind K3's
+     backward recompute running without TF32 (its gradients with cuDNN's
+     TF32 on against off, per stage);
   3. serving: the VidSTG R101 recipe at full width (RoBERTa-base, d = 256,
      6/6/6 layers, 448 px) with seeded random weights answers three requests
      through the port's MicroBatcher; K1's and K3's launch counts must rise
@@ -26,7 +31,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
      unchanged, every trainable group and the EMA moved; then one more step
      under torch.profiler, its device time broken down by kernel (K1, K2,
      K3 forward, the K3 recompute in the backward, the rest) against the
-     step's wall time.
+     step's wall time; a kernel whose counter moved but whose device name
+     shows no time fails the run.
 Every phase prints its seconds. The line before the last is a JSON object
 listing every kernel's numbers; the last line is the device record.
 """
@@ -155,7 +161,7 @@ def new_total():
 
 def record(total, label, dtype, err, rel, times, flops, nbytes, per_fwd):
     """Check the error, print one shape's line, add it to the kernel's total
-    (times weighted by launches per forward, bf16 only)."""
+    (times weighted by launches per forward, bf16 only); returns the bound."""
     if not rel <= TOL[dtype]:
         raise AssertionError(f"{label} {dtype}: rel err {rel:.3e} > {TOL[dtype]}")
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -170,6 +176,7 @@ def record(total, label, dtype, err, rel, times, flops, nbytes, per_fwd):
                          ("library_ms", lib_ms), ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
             total[key] += per_fwd * val
     total["max_abs_err"] = max(total["max_abs_err"], err)
+    return bound
 
 
 def check_k1(gen, dtype):
@@ -260,38 +267,77 @@ def _library_bottleneck(x, p: kbottle.BlockWeights, d: int):
     return F.relu(y3 + res)
 
 
+def k3_weights(gen, cin, p, ds):
+    """Seeded folded fp32 weights of a bottleneck block, Cout = 4P."""
+    f32, cout = torch.float32, 4 * p
+    return kbottle.BlockWeights(
+        w1=randn(gen, cin, p, dtype=f32, scale=cin ** -0.5),
+        b1=randn(gen, 1, 1, p, dtype=f32, scale=0.1),
+        w2=randn(gen, 3, 3, p, p, dtype=f32, scale=(9 * p) ** -0.5),
+        b2=randn(gen, 1, 1, p, dtype=f32, scale=0.1),
+        w3=randn(gen, p, cout, dtype=f32, scale=p ** -0.5),
+        b3=randn(gen, 1, 1, cout, dtype=f32, scale=0.1),
+        wd=randn(gen, cin, cout, dtype=f32, scale=cin ** -0.5) if ds else None,
+        bd=randn(gen, 1, 1, cout, dtype=f32, scale=0.1) if ds else None,
+    )
+
+
 def check_k3(gen, dtype):
+    """K3 against bottleneck_plain at the five stages; bf16 takes the
+    tensor-core kernel (timed over 10 calls), fp32 the CUDA-core one (2)."""
     total = new_total()
+    reps = 10 if dtype == torch.bfloat16 else 2
     isz = torch.finfo(dtype).bits // 8
-    f32 = torch.float32
     for name, h, w, cin, p, ds, per_fwd in K3_CASES:
         cout = 4 * p
-        bw = kbottle.BlockWeights(
-            w1=randn(gen, cin, p, dtype=f32, scale=cin ** -0.5),
-            b1=randn(gen, 1, 1, p, dtype=f32, scale=0.1),
-            w2=randn(gen, 3, 3, p, p, dtype=f32, scale=(9 * p) ** -0.5),
-            b2=randn(gen, 1, 1, p, dtype=f32, scale=0.1),
-            w3=randn(gen, p, cout, dtype=f32, scale=p ** -0.5),
-            b3=randn(gen, 1, 1, cout, dtype=f32, scale=0.1),
-            wd=randn(gen, cin, cout, dtype=f32, scale=cin ** -0.5) if ds else None,
-            bd=randn(gen, 1, 1, cout, dtype=f32, scale=0.1) if ds else None,
-        )
+        bw = k3_weights(gen, cin, p, ds)
         x = randn(gen, N, h, w, cin, dtype=dtype)
         out = kbottle.fused_bottleneck(x, bw, 1)
         ref = kbottle.bottleneck_plain(x, bw, 1)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         del out, ref
-        times = (time_ms(lambda: kbottle.fused_bottleneck(x, bw, 1), 2),
+        times = (time_ms(lambda: kbottle.fused_bottleneck(x, bw, 1), reps),
                  time_ms(lambda: kbottle.bottleneck_plain(x, bw, 1), 2),
-                 time_ms(lambda: _library_bottleneck(x, bw, 1), 2))
+                 time_ms(lambda: _library_bottleneck(x, bw, 1), reps))
         macs = cin * p + 9 * p * p + p * cout + (cin * cout if ds else 0)
         flops = 2.0 * N * h * w * macs
         nbytes = isz * (N * h * w * (cin + cout) + macs) + 4 * (2 * p + cout * (2 if ds else 1))
-        record(total, f"K3 {name:14s} N={N} {h}x{w} Cin={cin} P={p} proj={ds}", dtype, err,
-               rel, times, flops, nbytes, per_fwd)
+        bound = record(total, f"K3 {name:14s} N={N} {h}x{w} Cin={cin} P={p} proj={ds}", dtype,
+                       err, rel, times, flops, nbytes, per_fwd)
+        ch, cw, stages = kbottle.pick_tile(h, w, cin, p, cout, 1, isz, ds)
+        smem = kbottle._smem_bytes(ch, cw, p, 1, isz, cout, ds, stages)
+        print(f"    {flops / times[0] / 1e9:.1f} TFLOP/s, {100 * bound / times[0]:.1f}% of the "
+              f"bound, kernel / cuDNN {times[0] / times[2]:.3f}; tile {ch}x{cw}"
+              + (f", ring of {stages} slices" if stages else "") + f", {smem} B shared memory")
         del x, bw
     return total
+
+
+def check_recompute_tf32(gen):
+    """Why K3's backward recompute runs with cuDNN's TF32 off: at each stage
+    (bf16, two frames, deterministic algorithms) the gradients of
+    bottleneck_plain with TF32 on against off, ||a - b|| / ||b||. Every
+    operand is bf16-valued, so summation order alone would stay near 1e-6."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.allow_tf32
+    cudnn.deterministic = True
+    try:
+        for name, h, w, cin, p, ds, _ in K3_CASES:
+            bw = kbottle.BlockWeights(*(None if t is None else t.requires_grad_()
+                                        for t in k3_weights(gen, cin, p, ds)))
+            x = randn(gen, 2, h, w, cin, dtype=torch.bfloat16).requires_grad_()
+            g = randn(gen, 2, h, w, 4 * p, dtype=torch.bfloat16)
+            leaves = [x] + [t for t in bw if t is not None]
+            grads = []
+            for tf32 in (True, False):
+                cudnn.allow_tf32 = tf32
+                grads.append(torch.autograd.grad(kbottle.bottleneck_plain(x, bw, 1), leaves, g))
+            rels = [_rel(a, b) for a, b in zip(*grads)]
+            print(f"  K3 recompute {name:14s} TF32 vs fp32 gradients: ||a - b|| / ||b|| "
+                  f"x {rels[0]:.2e}, largest {max(rels):.2e}")
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32 = saved
 
 
 @contextlib.contextmanager
@@ -487,7 +533,11 @@ def compare_step(cfg, model, opt, raw, targets) -> None:
 # device-kernel name fragments of each hand-written kernel
 KERNEL_NAMES = {"K1 attention forward": ("flash_fwd_tiled", "flash_fwd_rows"),
                 "K2 attention backward": ("bwd_query_pass", "bwd_key_pass", "bwd_rows"),
-                "K3 bottleneck forward": ("bottleneck_fwd",)}
+                "K3 bottleneck forward": ("bottleneck_tc", "bottleneck_fwd")}
+# the launch counter behind each of them
+KERNEL_COUNTERS = {"K1 attention forward": kattn.LAUNCHES,
+                   "K2 attention backward": kattn.BWD_LAUNCHES,
+                   "K3 bottleneck forward": kbottle.LAUNCHES}
 
 
 def profile_step(step, state, raw, targets, gen) -> None:
@@ -499,11 +549,13 @@ def profile_step(step, state, raw, targets, gen) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = {name: c.count for name, c in KERNEL_COUNTERS.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.time()
         step(state, raw, targets, gen)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
+    launched = {name: c.count - before[name] for name, c in KERNEL_COUNTERS.items()}
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -515,7 +567,11 @@ def profile_step(step, state, raw, targets, gen) -> None:
     shares = {name: sum(e.self_device_time_total for e in kernels
                         if any(f in e.key for f in frags)) / 1e3
               for name, frags in KERNEL_NAMES.items()}
-    shares["K3 recompute (plain, autograd)"] = max(
+    for name, n in launched.items():
+        if n > 0 and shares[name] <= 0:
+            raise AssertionError(f"{name} launched {n} times in the traced step but no device "
+                                 f"kernel named {KERNEL_NAMES[name]} took any time")
+    shares["K3 recompute (plain fp32, autograd)"] = max(
         (e.device_time_total for e in events if "FusedBottleneckBackward" in e.key
          and e.device_type != torch.autograd.DeviceType.CUDA), default=0) / 1e3
     shares["everything else"] = device_ms - sum(shares.values())
@@ -619,10 +675,15 @@ def main() -> int:
     t0 = time.time()
     logs = _build.build_all()
     print(f"kernels built in {time.time() - t0:.1f} s")
-    for name, log in logs.items():  # ptxas: registers and shared memory per kernel
+    for name, log in logs.items():  # ptxas: registers, spills and shared memory per kernel
+        entry = name
         for line in log.splitlines():
-            if "registers" in line:
-                print(f"  {name}: {line.split('info    :')[-1].strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+                entry = next((f for frags in KERNEL_NAMES.values() for f in frags if f in fn), fn)
+                entry += "".join(f"<{a}>" for a in re.findall(r"ILi(\d+)E", fn))
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.split('info    :')[-1].strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -635,6 +696,8 @@ def main() -> int:
             found = {"flash_attention": check_k1(gen, dtype),
                      "fused_bottleneck": check_k3(gen, dtype)}
         found["flash_attention_bwd"] = check_k2(gen, dtype)
+        if dtype == torch.bfloat16:
+            check_recompute_tf32(gen)
         for name, tot in found.items():
             if dtype == torch.bfloat16:
                 totals[name] = tot

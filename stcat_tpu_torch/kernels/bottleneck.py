@@ -8,10 +8,13 @@ HWIO, w3 [P, Cout], wd [Cin, Cout] or None, fp32 biases [1, 1, C]), dilation 1
 or 2; returns [N, H, W, Cout] in x's dtype. It is a
 ``torch.autograd.Function`` over x and the eight weight tensors: the forward
 launches the kernel on CUDA tensors (or raises) and runs ``bottleneck_plain``
-on CPU tensors; the backward, like the JAX package's ``_vjp_bwd``, re-runs
-``bottleneck_plain`` under autograd on the saved x and weights and takes its
-gradients (the TPU kernel has no backward kernel either). Only x and the
-folded weights are saved.
+on CPU tensors. On the card bf16 takes the tensor-core kernel
+(``bottleneck_tc``) and fp32 the CUDA-core one (``bottleneck_fwd``); both
+count in ``LAUNCHES``. The backward, like the JAX package's ``_vjp_bwd``,
+re-runs ``bottleneck_plain`` under autograd on the saved x and weights and
+takes its gradients (the TPU kernel has no backward kernel either), with
+cuDNN's TF32 off whatever the caller set. Only x and the folded weights are
+saved.
 
 x may be a channels-last view of an NCHW tensor (``permute(0, 2, 3, 1)`` of
 a ``torch.channels_last`` tensor is contiguous), so the backbone hands its
@@ -20,9 +23,11 @@ activations over without a copy.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from collections import Counter
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,34 +75,105 @@ def bottleneck_plain(x: torch.Tensor, p: BlockWeights, dilation: int = 1) -> tor
     return torch.relu(y3 + res).to(dt).permute(0, 2, 3, 1)
 
 
-def _smem_bytes(ch: int, cw: int, p: int, d: int, itemsize: int) -> int:
+# bf16 route (csrc/bottleneck.cu, namespace tc): ring slices of BK rows of
+# K; every A row in shared memory padded by APAD elements
+BK, APAD, ZERO_BYTES = 32, 8, 128
+
+
+def _layout(n: int) -> Tuple[int, int]:
+    """(warpgroups along M, m64n64 tiles per warpgroup) of a GEMM phase
+    whose N is n wide."""
+    return (2 if n <= 128 else 1), (1 if n <= 64 else 2)
+
+
+def _tile_n(n: int) -> int:
+    """Columns of B per GEMM tile of that phase."""
+    wgm, nt = _layout(n)
+    return 64 * nt * (2 // wgm)
+
+
+def _pack_b(wt: torch.Tensor, bn: int) -> torch.Tensor:
+    """K-major weights [N, taps, kin] -> the tensor-core route's B tiles: per
+    chunk of bn output channels and per BK-deep slice of K (each tap's kin
+    zero-padded to whole slices), one contiguous tile in core-matrix order
+    (8 channels x 8 K values per 128 bytes, the next 8 K, then the next 8
+    channels); channels past N are zero."""
+    n, taps, kin = wt.shape
+    cpt, n_pad = -(-kin // BK), -(-n // bn) * bn
+    w = wt.new_zeros(n_pad, taps, cpt * BK)
+    w[:n, :, :kin] = wt
+    w = w.reshape(n_pad // bn, bn // 8, 8, taps * cpt, BK // 8, 8)
+    return w.permute(0, 3, 1, 4, 2, 5)
+
+
+def _smem_bytes(ch: int, cw: int, p: int, d: int, itemsize: int, cout: int, proj: bool,
+                stages: int) -> int:
     """Host copy of ``bottleneck_smem_bytes`` in csrc/bottleneck.cu."""
-    stage = 4 * (16 * 68 + 16 * 64)
-    return stage + ((ch + 2 * d) * (cw + 2 * d) + ch * cw) * p * itemsize
+    if itemsize == 4:  # fp32 route: K-slice staging, x1 with halo, y2 of the tile
+        return 4 * (16 * 68 + 16 * 64) + ((ch + 2 * d) * (cw + 2 * d) + ch * cw) * p * 4
+
+    def a_bytes(wgm):
+        return 64 * wgm * (BK + APAD) * 2
+
+    def b_bytes(wgm, nt):
+        return BK * 64 * nt * (2 // wgm) * 2
+
+    (wp, tp), (wc, tc) = _layout(p), _layout(cout)
+    stage = max(a_bytes(wp) + b_bytes(wp, tp), b_bytes(wc, tc) + (a_bytes(wc) if proj else 0))
+    row = (p + APAD) * 2
+    return ZERO_BYTES + stages * stage + ((ch + 2 * d) * (cw + 2 * d) + 64 * wp) * row
+
+
+def _bands(n: int, c: int) -> List[Tuple[int, int]]:
+    """(start, size) of the tiles along one axis, in the kernel's block order."""
+    return [(s, min(c, n - s)) for s in range(0, n, c)]
+
+
+def _best_tile(h, w, cin, p, cout, d, itemsize, proj, stages):
+    """(work, (rows, cols)) of the tile that fits shared memory with the least
+    GEMM work over the frame, then the largest; None if none fits. Work
+    counts x1's halo recompute and, on the bf16 route, rows rounded up to
+    the 64 rows of a warpgroup's wgmma (phase 1 over the haloed tile,
+    phases 2-3 over the tile)."""
+    g = 64 if itemsize == 2 else 1
+    k1, k23 = cin * p, 9 * p * p + p * cout + (cin * cout if proj else 0)
+    best = None
+    for ch in range(1, h + 1):
+        rows = Counter(size for _, size in _bands(h, ch))
+        for cw in range(1, w + 1):
+            if _smem_bytes(ch, cw, p, d, itemsize, cout, proj, stages) > SMEM_LIMIT:
+                break
+            cols = Counter(size for _, size in _bands(w, cw))
+            work = sum(nr * nc * (-(-(r + 2 * d) * (c + 2 * d) // g) * k1 + -(-r * c // g) * k23)
+                       for r, nr in rows.items() for c, nc in cols.items())
+            if best is None or (work, -ch * cw) < (best[0], -best[1][0] * best[1][1]):
+                best = (work, (ch, cw))
+    return best
 
 
 @functools.lru_cache(maxsize=64)
-def pick_tile(h: int, w: int, p: int, d: int, itemsize: int) -> Tuple[int, int]:
-    """Output tile (rows, cols) per thread block. x1 (with its d-wide halo)
-    and y2 must fit shared memory; among the tiles that fit, the one that
-    computes the fewest x1 positions over the whole frame (halo and ragged
-    last tiles included), then the largest."""
-    best = None
-    for ch in range(1, h + 1):
-        for cw in range(1, w + 1):
-            if _smem_bytes(ch, cw, p, d, itemsize) > SMEM_LIMIT:
-                break
-            work = -(-h // ch) * -(-w // cw) * (ch + 2 * d) * (cw + 2 * d)
-            key = (work, -ch * cw)
-            if best is None or key < best[0]:
-                best = (key, (ch, cw))
-    if best is None:
+def pick_tile(h: int, w: int, cin: int, p: int, cout: int, d: int, itemsize: int,
+              proj: bool) -> Tuple[int, int, int]:
+    """(rows, cols) of the output tile per thread block and the depth of the
+    bf16 route's weight ring (0 on the fp32 route). A 4-slice ring keeps
+    more weight bytes in flight than a 3-slice one but leaves less shared
+    memory for x1; it is taken unless its best tile does over 10% more work."""
+    if itemsize == 2 and (cin % 8 or p % 8 or cout % 8):
+        # the tensor-core route copies channels in 16-byte chunks (8 bf16)
+        raise ValueError(f"fused_bottleneck: bf16 needs Cin, P and Cout multiples of 8, "
+                         f"got {cin}, {p}, {cout}")
+    rings = (4, 3) if itemsize == 2 else (0,)
+    found = {st: best for st in rings
+             if (best := _best_tile(h, w, cin, p, cout, d, itemsize, proj, st)) is not None}
+    if not found:
         raise ValueError(
             f"fused_bottleneck: a 1x1 tile with P={p}, dilation={d} in {itemsize}-byte "
-            f"elements needs {_smem_bytes(1, 1, p, d, itemsize)} B of shared memory, over "
-            f"the {SMEM_LIMIT} B a block may use"
+            f"elements needs {_smem_bytes(1, 1, p, d, itemsize, cout, proj, rings[-1])} B of "
+            f"shared memory, over the {SMEM_LIMIT} B a block may use"
         )
-    return best[1]
+    least = min(work for work, _ in found.values())
+    st = next(st for st, (work, _) in found.items() if work <= 1.1 * least)
+    return (*found[st][1], st)
 
 
 def _check(x: torch.Tensor, p: BlockWeights, dilation: int) -> None:
@@ -125,33 +201,56 @@ def _check(x: torch.Tensor, p: BlockWeights, dilation: int) -> None:
             raise ValueError(f"fused_bottleneck: {name} is not on {x.device}")
     if x.shape[0] > 65535:
         raise ValueError("fused_bottleneck: at most 65535 frames per launch")
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck: x must start on a 16-byte boundary")
 
 
 def _launch(x: torch.Tensor, p: BlockWeights, dilation: int) -> torch.Tensor:
     n, h, w, cin = x.shape
     planes, cout = p.w1.shape[1], p.w3.shape[1]
     dt = x.dtype
-    ch, cw = pick_tile(h, w, planes, dilation, x.element_size())
-    # weights in the compute dtype, biases fp32, all contiguous
-    wts = [p.w1.to(dt).contiguous(), p.b1.float().contiguous(),
-           p.w2.to(dt).contiguous(), p.b2.float().contiguous(),
-           p.w3.to(dt).contiguous(), p.b3.float().contiguous()]
+    ch, cw, stages = pick_tile(h, w, cin, planes, cout, dilation, x.element_size(),
+                               p.wd is not None)
+    # weights in the compute dtype, biases fp32, all contiguous; the
+    # tensor-core route takes its weights as packed B tiles
+    if dt == torch.bfloat16:
+        bn_p, bn_c = _tile_n(planes), _tile_n(cout)
+        w1 = _pack_b(p.w1.to(dt).t()[:, None], bn_p)
+        w2 = _pack_b(p.w2.to(dt).permute(3, 0, 1, 2).reshape(planes, 9, planes), bn_p)
+        w3 = _pack_b(p.w3.to(dt).t()[:, None], bn_c)
+        wd = None if p.wd is None else _pack_b(p.wd.to(dt).t()[:, None], bn_c)
+    else:
+        w1, w2, w3, wd = p.w1.to(dt), p.w2.to(dt), p.w3.to(dt), p.wd
+    wts = [w1.contiguous(), p.b1.float().contiguous(), w2.contiguous(), p.b2.float().contiguous(),
+           w3.contiguous(), p.b3.float().contiguous()]
     if p.wd is not None:
-        wts += [p.wd.to(dt).contiguous(), p.bd.float().contiguous()]
+        wts += [wd.to(dt).contiguous(), p.bd.float().contiguous()]
     ptrs = [t.data_ptr() for t in wts] + ([] if p.wd is not None else [None, None])
     out = torch.empty((n, h, w, cout), dtype=dt, device=x.device)
 
     lib = _build.load("bottleneck")
     fn = lib.bottleneck_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), *ptrs, out.data_ptr(), n, h, w, cin, planes, cout,
-             dilation, ch, cw, _DTYPES[dt], stream)
+             dilation, ch, cw, stages, _DTYPES[dt], stream)
     if err != 0:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {err}")
     LAUNCHES.add()
     return out
+
+
+@contextlib.contextmanager
+def _cudnn_fp32():
+    """cuDNN's TF32 switched off for the block, every other cuDNN flag left
+    as the caller set it."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 class _FusedBottleneck(torch.autograd.Function):
@@ -169,7 +268,9 @@ class _FusedBottleneck(torch.autograd.Function):
     def backward(ctx, g):
         saved = ctx.saved_tensors
         needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
-        with torch.enable_grad():
+        # fp32 convolutions whatever the caller's TF32 flag: cuDNN's TF32
+        # convolutions move the bf16 gradients by 1e-3 to 1.6e-2 (PERF.md)
+        with torch.enable_grad(), _cudnn_fp32():
             inputs = [None if t is None else t.detach().requires_grad_(n)
                       for t, n in zip(saved, needs)]
             out = bottleneck_plain(inputs[0], BlockWeights(*inputs[1:]), ctx.dilation)

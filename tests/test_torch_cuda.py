@@ -11,7 +11,8 @@ installed (the machine with the card):
 
 Tolerances are relative to max |plain|: fp32 differs in summation order only
 (1e-4); bf16 also rounds p (attention) and x1/y2 (bottleneck) at other points
-than the plain version (2e-2, about two bf16 ulps).
+than the plain version (2e-2, about two bf16 ulps). The bottleneck's bf16
+inputs take its tensor-core kernel and fp32 inputs its CUDA-core kernel.
 """
 
 import numpy as np
@@ -106,6 +107,105 @@ def test_fused_bottleneck_kernel_matches_plain(dev, dtype, tol, n, h, w, cin, p,
     torch.cuda.synchronize()
     assert out.shape == (n, h, w, cout) and out.dtype == dtype
     assert _rel_err(out, ref) <= tol
+
+
+# the main path's stride-1 blocks (R101 at 448x608: layer1's first block with
+# its projection, then layers 1-4), two frames
+STAGES = [  # h, w, cin, p, projection
+    (112, 152, 64, 64, True),
+    (112, 152, 256, 64, False),
+    (56, 76, 512, 128, False),
+    (28, 38, 1024, 256, False),
+    (14, 19, 2048, 512, False),
+]
+
+
+def _block(dev, rng, cin, p, ds, grad=False):
+    """Seeded folded weights at He-like scales (fp32, as the backbone folds them)."""
+    cout = 4 * p
+    scales = {"w1": cin ** -0.5, "w2": (9 * p) ** -0.5, "w3": p ** -0.5, "wd": cin ** -0.5}
+    shapes = {"w1": (cin, p), "b1": (1, 1, p), "w2": (3, 3, p, p), "b2": (1, 1, p),
+              "w3": (p, cout), "b3": (1, 1, cout), "wd": (cin, cout), "bd": (1, 1, cout)}
+    ts = {k: torch.from_numpy((rng.randn(*s) * scales.get(k, 0.1)).astype(np.float32)).to(dev)
+          for k, s in shapes.items() if ds or k not in ("wd", "bd")}
+    return pkb.BlockWeights(**{k: ts[k].requires_grad_(grad) if k in ts else None
+                               for k in pkb.BlockWeights._fields})
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("h,w,cin,p,ds", STAGES)
+def test_fused_bottleneck_kernel_matches_plain_at_main_path_stages(dev, dtype, tol, h, w, cin,
+                                                                   p, ds):
+    rng = np.random.RandomState(5)
+    bw = _block(dev, rng, cin, p, ds)
+    x = torch.from_numpy(rng.randn(2, h, w, cin).astype(np.float32)).to(dev, dtype)
+    before = pkb.LAUNCHES.count
+    out = pkb.fused_bottleneck(x, bw, 1)
+    assert pkb.LAUNCHES.count == before + 1
+    ref = pkb.bottleneck_plain(x, bw, 1)
+    torch.cuda.synchronize()
+    assert out.shape == (2, h, w, 4 * p) and out.dtype == dtype
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_fused_bottleneck_kernel_ragged_tiles(dev, dtype, tol):
+    """A frame whose tiles end ragged in both directions and whose pixel
+    count per tile is no multiple of 64 (a partial warpgroup tile), dilation 2."""
+    rng = np.random.RandomState(6)
+    h, w, cin, p = 31, 57, 256, 64
+    bw = _block(dev, rng, cin, p, False)
+    ch, cw, _ = pkb.pick_tile(h, w, cin, p, 4 * p, 2, torch.finfo(dtype).bits // 8, False)
+    assert h % ch and w % cw and (ch * cw) % 64
+    x = torch.from_numpy(rng.randn(3, h, w, cin).astype(np.float32)).to(dev, dtype)
+    out = pkb.fused_bottleneck(x, bw, 2)
+    ref = pkb.bottleneck_plain(x, bw, 2)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("h,w,cin,p,ds", STAGES)
+def test_bottleneck_smem_bytes_matches_the_kernel(dev, itemsize, h, w, cin, p, ds):
+    import ctypes
+    from stcat_tpu_torch.kernels import _build
+
+    fn = _build.load("bottleneck").bottleneck_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    ch, cw, stages = pkb.pick_tile(h, w, cin, p, 4 * p, 1, itemsize, ds)
+    for tile, st in (((ch, cw), stages), ((1, 1), 3), ((ch, 1), 4)):
+        assert fn(*tile, p, 1, itemsize, 4 * p, int(ds), st) == \
+            pkb._smem_bytes(*tile, p, 1, itemsize, 4 * p, ds, st)
+
+
+@pytest.mark.parametrize("h,w,cin,p,ds", STAGES)
+def test_bottleneck_recompute_ignores_the_callers_tf32_flag(dev, h, w, cin, p, ds):
+    """bf16: every gradient of fused_bottleneck with cuDNN's TF32 switched on
+    by the caller, against autograd through bottleneck_plain with it off.
+    The recompute turns TF32 off itself: TF32 convolutions of these
+    bf16-valued operands moved the gradients by 1e-3 to 1.6e-2 (relative L2),
+    not by summation order alone. Both sides run deterministic cuDNN, so
+    ||a - b|| / ||b|| <= 1e-5 leaves room for summation order only."""
+    rng = np.random.RandomState(7)
+    bw = _block(dev, rng, cin, p, ds, grad=True)
+    x = torch.from_numpy(rng.randn(2, h, w, cin).astype(np.float32)).to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(2, h, w, 4 * p).astype(np.float32)).to(dev, torch.bfloat16)
+    leaves = [x.requires_grad_()] + [t for t in bw if t is not None]
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.allow_tf32
+    cudnn.deterministic, cudnn.allow_tf32 = True, True
+    try:
+        got = torch.autograd.grad(pkb.fused_bottleneck(x, bw, 1), leaves, g)
+        assert cudnn.allow_tf32
+        cudnn.allow_tf32 = False
+        want = torch.autograd.grad(pkb.bottleneck_plain(x, bw, 1), leaves, g)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32 = saved
+    names = ["x"] + [k for k, t in zip(pkb.BlockWeights._fields, bw) if t is not None]
+    for name, a, b in zip(names, got, want):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-5, (name, rel)
 
 
 def _attn_inputs(dev, dtype, bh, sq, sk, dk, dv, seed=0):
@@ -209,6 +309,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                           None, None)
     with pytest.raises(ValueError, match="Cin == Cout"):
         pkb.fused_bottleneck(x, bw, 1)
+    bw = pkb.BlockWeights(z(8, 4), z(1, 1, 4), z(3, 3, 4, 4), z(1, 1, 4), z(4, 8), z(1, 1, 8),
+                          None, None)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        pkb.fused_bottleneck(x.bfloat16(), bw, 1)
 
 
 def test_tiny_model_kernel_forward_matches_cpu_plain_forward(dev):

@@ -238,24 +238,107 @@ def test_bottleneck_wrapper_on_cpu_runs_plain_without_launch():
     torch.testing.assert_close(out, pkb.bottleneck_plain(x, bw, 1), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("h,w,p,d,itemsize", [
-    (112, 152, 64, 1, 2),   # layer1 bf16
-    (56, 76, 128, 1, 2),    # layer2 bf16
-    (28, 38, 256, 1, 2),    # layer3 bf16
-    (14, 19, 512, 1, 2),    # layer4 bf16
-    (14, 19, 512, 1, 4),    # layer4 fp32
-    (28, 38, 512, 2, 4),    # DC5 layer4 fp32: not even one whole row fits
-])
-def test_bottleneck_tile_fits_shared_memory(h, w, p, d, itemsize):
-    ch, cw = pkb.pick_tile(h, w, p, d, itemsize)
+# the main path's stride-1 blocks (R101 at 448x608) and a DC5 layer4 block:
+# h, w, cin, p, dilation, projection
+MAIN_STAGES = [
+    (112, 152, 64, 64, 1, True),
+    (112, 152, 256, 64, 1, False),
+    (56, 76, 512, 128, 1, False),
+    (28, 38, 1024, 256, 1, False),
+    (14, 19, 2048, 512, 1, False),
+]
+DC5_LAYER4 = (28, 38, 2048, 512, 2, False)
+
+
+def _tile_work(h, w, cin, p, d, proj, ch, cw, itemsize):
+    """GEMM work of a tile plan, tile by tile: x1 over each haloed tile and
+    phases 2-3 over each tile, rows rounded up to 64 on the bf16 route."""
+    g = 64 if itemsize == 2 else 1
+    ru = lambda m: -(-m // g) * g
+    total = 0
+    for r0 in range(0, h, ch):
+        r = min(ch, h - r0)
+        for c0 in range(0, w, cw):
+            c = min(cw, w - c0)
+            total += ru((r + 2 * d) * (c + 2 * d)) * cin * p
+            total += ru(r * c) * (9 * p * p + 4 * p * p + (cin * 4 * p if proj else 0))
+    return total
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("h,w,cin,p,d,proj", MAIN_STAGES + [DC5_LAYER4])
+def test_bottleneck_tile_fits_shared_memory(h, w, cin, p, d, proj, itemsize):
+    """The picked tile and ring fit 227 KB; no tile that fits the same ring
+    does less work; the ring is the 4-slice one unless that costs over 10%
+    more work (bf16), and the fp32 route has none."""
+    cout = 4 * p
+    ch, cw, stages = pkb.pick_tile(h, w, cin, p, cout, d, itemsize, proj)
     assert 1 <= ch <= h and 1 <= cw <= w
-    assert pkb._smem_bytes(ch, cw, p, d, itemsize) <= pkb.SMEM_LIMIT
-    # no tile that fits computes fewer x1 positions over the frame
-    work = lambda c, v: -(-h // c) * -(-w // v) * (c + 2 * d) * (v + 2 * d)
-    assert all(work(c2, w2) >= work(ch, cw) for c2 in range(1, h + 1) for w2 in range(1, w + 1)
-               if pkb._smem_bytes(c2, w2, p, d, itemsize) <= pkb.SMEM_LIMIT)
+    assert stages in ((3, 4) if itemsize == 2 else (0,))
+    assert pkb._smem_bytes(ch, cw, p, d, itemsize, cout, proj, stages) <= pkb.SMEM_LIMIT
+    if h * w > 3000:  # the brute force below is for the smaller frames
+        return
+    work = _tile_work(h, w, cin, p, d, proj, ch, cw, itemsize)
+    least = {}
+    for st in ((3, 4) if itemsize == 2 else (0,)):
+        fits = [(c2, w2) for c2 in range(1, h + 1) for w2 in range(1, w + 1)
+                if pkb._smem_bytes(c2, w2, p, d, itemsize, cout, proj, st) <= pkb.SMEM_LIMIT]
+        least[st] = min(_tile_work(h, w, cin, p, d, proj, c2, w2, itemsize) for c2, w2 in fits)
+    assert work == least[stages]
+    assert work <= 1.1 * min(least.values())
+    if itemsize == 2 and stages == 3:
+        assert least[4] > 1.1 * least[3]
 
 
-def test_bottleneck_tile_refuses_what_cannot_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        pkb.pick_tile(14, 19, 4096, 2, 4)  # P=4096 in fp32: no 1x1 tile fits
+@pytest.mark.parametrize("h,w,cin,p,d,proj", MAIN_STAGES + [DC5_LAYER4, (31, 57, 256, 64, 2, False)])
+def test_bottleneck_tile_plan_covers_every_pixel_once(h, w, cin, p, d, proj):
+    """The kernel's grid (tiles along W fastest) covers each output pixel
+    once; each block's x1 halo, clipped to the image, holds every x1 value
+    its 3x3 windows read."""
+    ch, cw, _ = pkb.pick_tile(h, w, cin, p, 4 * p, d, 2, proj)
+    rows, cols = pkb._bands(h, ch), pkb._bands(w, cw)
+    assert len(rows) * len(cols) == -(-h // ch) * -(-w // cw)
+    hits = np.zeros((h, w), np.int64)
+    for r0, nr in rows:
+        for c0, nc in cols:
+            hits[r0:r0 + nr, c0:c0 + nc] += 1
+            ys = {y + dy for y in range(r0, r0 + nr) for dy in (-d, 0, d)} & set(range(h))
+            xs = {x + dx for x in range(c0, c0 + nc) for dx in (-d, 0, d)} & set(range(w))
+            assert ys <= set(range(max(r0 - d, 0), min(r0 + nr + d, h)))
+            assert xs <= set(range(max(c0 - d, 0), min(c0 + nc + d, w)))
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("cin,p,cout,itemsize", [
+    (16, 4096, 16384, 4),   # P=4096 in fp32: no 1x1 tile fits
+    (12, 64, 256, 2),       # bf16 copies channels in 16-byte chunks: Cin % 8
+    (64, 60, 240, 2),       # ... P % 8
+    (64, 64, 252, 2),       # ... Cout % 8
+])
+def test_bottleneck_tile_refuses_what_cannot_fit(cin, p, cout, itemsize):
+    with pytest.raises(ValueError, match="shared memory|multiples of 8"):
+        pkb.pick_tile(14, 19, cin, p, cout, 2, itemsize, False)
+
+
+@pytest.mark.parametrize("n,taps,kin", [(256, 9, 256), (8, 9, 8), (64, 1, 16), (512, 1, 2048),
+                                        (72, 3, 40)])
+def test_bottleneck_pack_b_lays_out_the_kernels_tiles(n, taps, kin):
+    """Weight (channel, tap, k) lands where bottleneck_tc reads it: tile
+    (channel chunk, K slice) at (chunk * slices + slice) * BN * BK, inside
+    it core matrix (channel / 8, k / 8) of 64 elements, row channel % 8;
+    padding is zero."""
+    bn, bk = pkb._tile_n(n), pkb.BK
+    wt = torch.from_numpy(np.random.RandomState(0).randn(n, taps, kin).astype(np.float32))
+    packed = pkb._pack_b(wt, bn).contiguous().flatten()
+    cpt = -(-kin // bk)
+    nk = taps * cpt
+    assert packed.numel() == -(-n // bn) * nk * bn * bk
+    ch, tap, ci = np.meshgrid(np.arange(n), np.arange(taps), np.arange(kin), indexing="ij")
+    chunk, nn = np.divmod(ch, bn)
+    kk = ci % bk
+    off = ((chunk * nk + tap * cpt + ci // bk) * bn * bk
+           + ((nn >> 3) * (bk // 8) + (kk >> 3)) * 64 + (nn & 7) * 8 + (kk & 7))
+    np.testing.assert_array_equal(packed.numpy()[off], wt.numpy())
+    mask = np.ones(packed.numel(), bool)
+    mask[off.ravel()] = False
+    assert (packed.numpy()[mask] == 0).all()
