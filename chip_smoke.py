@@ -6,17 +6,25 @@ Phases (any failure exits non-zero; no phase's error is caught):
   1. device: require CUDA, print the card's name and power limit, the torch
      and CUDA versions, build every kernel (one nvcc per source, in
      parallel) and print ptxas's registers, spills and shared memory per
-     kernel;
+     kernel entry; count the tensor-core instructions (HMMA, HGMMA) of every
+     entry in cuobjdump's SASS of the built libraries, and fail if a bf16
+     attention entry meant for the tensor cores has none;
   2. kernels: each hand-written kernel against its plain PyTorch version, in
      bf16 and fp32, with kernel / plain / library times and the card's bound
-     for the same work: K1 (attention forward) and K3 (bottleneck; bf16 on
-     its tensor-core kernel, fp32 on its CUDA-core one; per stage also its
-     TFLOP/s, share of the bound and ratio to the cuDNN sequence) at the
-     serving path's shapes (4 lanes x 64 frames, canvas 448x608, 14x19
-     feature grid, L = 26), K2 (attention backward) at the training path's
-     (one 64-frame clip per microbatch); and the reading behind K3's
-     backward recompute running without TF32 (its gradients with cuDNN's
-     TF32 on against off, per stage);
+     for the same work: K1 (attention forward; bf16 on its tensor-core
+     kernel, fp32 on its CUDA-core one, Sq < 8 on the row kernel) and K3
+     (bottleneck; bf16 on its tensor-core kernel, fp32 on its CUDA-core
+     one) at the serving path's shapes (4 lanes x 64 frames, canvas
+     448x608, 14x19 feature grid, L = 26), K2 (attention backward, routed as
+     K1) at the training path's (one 64-frame clip per microbatch), each
+     call site and stage also with its TFLOP/s, share of the bound and ratio
+     to the library call; K2 runs twice per call site and must be bitwise
+     equal; and the reading behind K3's backward recompute running without
+     TF32 (its gradients with cuDNN's TF32 on against off, per stage). The
+     times are CUDA-event times over back-to-back calls, host launch cost
+     included; K1 and K2 also print each call site's device time (the
+     profiler's sum of kernel durations per call) for the kernel and the
+     library call, and the kernels the call ran;
   3. serving: the VidSTG R101 recipe at full width (RoBERTa-base, d = 256,
      6/6/6 layers, 448 px) with seeded random weights answers three requests
      through the port's MicroBatcher; K1's and K3's launch counts must rise
@@ -145,6 +153,30 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time(fn, reps: int = 10, windows: int = 3):
+    """Device time per call of fn and the names of the kernels it launched:
+    their durations summed by torch.profiler over reps calls after one
+    warm-up call. A profiler window now and then comes back without device
+    events (seen once in some hundred windows on the H100); such a window is
+    taken again, up to `windows` times, and the run fails if none records
+    any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        if ms > 0:
+            return ms, [e.key for e in kernels]
+    raise AssertionError(f"the profiler recorded no device time in {windows} windows")
+
+
 def rel_err(out: torch.Tensor, ref: torch.Tensor):
     err = (out.float() - ref.float()).abs().max().item()
     return err, err / max(1.0, ref.float().abs().max().item())
@@ -160,8 +192,8 @@ def new_total():
 
 
 def record(total, label, dtype, err, rel, times, flops, nbytes, per_fwd):
-    """Check the error, print one shape's line, add it to the kernel's total
-    (times weighted by launches per forward, bf16 only); returns the bound."""
+    """Check the error, print one shape's line and its rates, add it to the
+    kernel's total (times weighted by launches per forward, bf16 only)."""
     if not rel <= TOL[dtype]:
         raise AssertionError(f"{label} {dtype}: rel err {rel:.3e} > {TOL[dtype]}")
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -171,67 +203,99 @@ def record(total, label, dtype, err, rel, times, flops, nbytes, per_fwd):
     print(f"  {label} {str(dtype):15s}: max_abs_err={err:.3e} rel={rel:.3e} "
           f"(tol {TOL[dtype]}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"library={lib_ms:.4f} ms bound={bound:.4f} ms ({by})")
+    print(f"    {flops / ms / 1e9:.2f} TFLOP/s, {100 * bound / ms:.1f}% of the bound, "
+          f"kernel / library {ms / lib_ms:.3f}")
     if dtype == torch.bfloat16:
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
                          ("library_ms", lib_ms), ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
             total[key] += per_fwd * val
     total["max_abs_err"] = max(total["max_abs_err"], err)
-    return bound
+
+
+def attn_inputs(gen, bh, sq, sk, dk, dv, dtype, grad: bool):
+    """Seeded q, k, v, bias and (for the backward) the output gradient g of
+    one attention call site, masked as on the main path."""
+    q, k = randn(gen, bh, sq, dk, dtype=dtype), randn(gen, bh, sk, dk, dtype=dtype)
+    v = randn(gen, bh, sk, dv, dtype=dtype)
+    g = randn(gen, bh, sq, dv, dtype=dtype) if grad else None
+    bias = torch.zeros(bh, sk, device="cuda")
+    bias[:, -L // 2:] = -1e30      # padded text tokens
+    bias[: bh // 16, :] = -1e30    # fully masked rows: uniform average
+    return q, k, v, bias, g
+
+
+def device_line(kernel: str, fn, library) -> str:
+    """The call site's device times (kernel, library call) and the kernel
+    entries the call ran (KERNEL_NAMES fragments of its device kernels)."""
+    ms, names = device_time(fn)
+    lib_ms = library(lambda f: device_time(f)[0])
+    route = "+".join(f for f in KERNEL_NAMES[kernel] if any(f in n for n in names))
+    return (f"    device time: kernel {ms:.4f} ms, library {lib_ms:.4f} ms; "
+            f"kernels {route or 'none'}")
 
 
 def check_k1(gen, dtype):
     total = new_total()
     isz = torch.finfo(dtype).bits // 8
     for name, bh, sq, sk, dk, dv, per_fwd in K1_CASES:
-        q, k = randn(gen, bh, sq, dk, dtype=dtype), randn(gen, bh, sk, dk, dtype=dtype)
-        v = randn(gen, bh, sk, dv, dtype=dtype)
-        bias = torch.zeros(bh, sk, device="cuda")
-        bias[:, -L // 2:] = -1e30      # padded text tokens
-        bias[: bh // 16, :] = -1e30    # fully masked rows: uniform average
+        q, k, v, bias, _ = attn_inputs(gen, bh, sq, sk, dk, dv, dtype, grad=False)
         out = kattn.flash_attention(q, k, v, bias)
         ref = kattn.attention_plain(q, k, v, bias)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         mask = bias[:, None, :].to(dtype)
-        times = (time_ms(lambda: kattn.flash_attention(q, k, v, bias), 10),
-                 time_ms(lambda: kattn.attention_plain(q, k, v, bias), 10),
-                 time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 10))
+
+        def kernel():
+            return kattn.flash_attention(q, k, v, bias)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        times = (time_ms(kernel, 10), time_ms(lambda: kattn.attention_plain(q, k, v, bias), 10),
+                 time_ms(library, 10))
         flops = 2.0 * bh * sq * sk * (dk + dv)
         nbytes = isz * (bh * sq * dk + bh * sk * dk + bh * sk * dv + bh * sq * dv) + 4 * bh * sk
         record(total, f"K1 {name:30s} BH={bh} Sq={sq} Sk={sk} Dk={dk} Dv={dv}", dtype, err,
                rel, times, flops, nbytes, per_fwd)
+        print(device_line("K1 attention forward", kernel, lambda timer: timer(library)))
         del q, k, v, bias, out, ref
     return total
 
 
-def _sdpa_bwd_ms(q, k, v, mask, g) -> float:
+def _sdpa_bwd_ms(q, k, v, mask, g, timer) -> float:
     """Autograd through F.scaled_dot_product_attention: fwd+bwd minus fwd
-    (the library yardstick for K2; timed only)."""
+    by timer (the library yardstick for K2; timed only)."""
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd():
         return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
 
     with torch.enable_grad():
-        return time_ms(lambda: fwd().backward(g), 10) - time_ms(fwd, 10)
+        return timer(lambda: fwd().backward(g)) - timer(fwd)
 
 
 def check_k2(gen, dtype):
     """K2 against attention_bwd_plain: dq, dk, dv and dbias, each output's
     max |diff| relative to that output's own max |plain| (no floor: the
-    gradients are far below 1)."""
+    gradients are far below 1); a second run must match the first bitwise
+    (no atomics, on every route)."""
     total = new_total()
     isz = torch.finfo(dtype).bits // 8
     for name, bh, sq, sk, dk, dv, per_mb in K2_CASES:
-        q, k = randn(gen, bh, sq, dk, dtype=dtype), randn(gen, bh, sk, dk, dtype=dtype)
-        v, g = randn(gen, bh, sk, dv, dtype=dtype), randn(gen, bh, sq, dv, dtype=dtype)
-        bias = torch.zeros(bh, sk, device="cuda")
-        bias[:, -L // 2:] = -1e30      # padded text tokens
-        bias[: bh // 16, :] = -1e30    # fully masked rows
+        q, k, v, bias, g = attn_inputs(gen, bh, sq, sk, dk, dv, dtype, grad=True)
+        mask = bias[:, None, :].to(dtype)
+
+        def kernel():
+            return kattn.flash_attention_bwd(q, k, v, bias, g)
+
         with torch.no_grad():
             out = kattn.flash_attention_bwd(q, k, v, bias, g)
+            again = kattn.flash_attention_bwd(q, k, v, bias, g)
             ref = kattn.attention_bwd_plain(q, k, v, bias, g)
             torch.cuda.synchronize()
+            for key, a, b in zip(("dq", "dk", "dv", "dbias"), out, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2 {name} {dtype}: {key} differs between two runs")
             errs = {key: ((a.float() - b.float()).abs().max().item(),
                           b.float().abs().max().item())
                     for key, a, b in zip(("dq", "dk", "dv", "dbias"), out, ref)}
@@ -241,16 +305,20 @@ def check_k2(gen, dtype):
             print(f"  K2 {name:30s} {str(dtype):15s}: per output |diff| / max|plain|: "
                   + ", ".join(f"{key} {rels[key]:.3e} (of {m:.3e})"
                               for key, (_, m) in errs.items()))
-            del out, ref
-            times = (time_ms(lambda: kattn.flash_attention_bwd(q, k, v, bias, g), 10),
+            del out, again, ref
+            times = (time_ms(kernel, 10),
                      time_ms(lambda: kattn.attention_bwd_plain(q, k, v, bias, g), 10))
-        times += (_sdpa_bwd_ms(q, k, v, bias[:, None, :].to(dtype), g),)
+        times += (_sdpa_bwd_ms(q, k, v, mask, g, lambda f: time_ms(f, 10)),)
         flops = 2.0 * bh * sq * sk * (3 * dk + 3 * dv)
         nbytes = isz * 2 * (bh * sq * dk + bh * sk * dk + bh * sk * dv) + isz * bh * sq * dv \
             + 4 * 2 * bh * sk
         record(total, f"K2 {name:30s} BH={bh} Sq={sq} Sk={sk} Dk={dk} Dv={dv}", dtype, err,
                rel, times, flops, nbytes, per_mb)
-        del q, k, v, g, bias
+        with torch.no_grad():
+            line = device_line("K2 attention backward", kernel,
+                               lambda timer: _sdpa_bwd_ms(q, k, v, mask, g, timer))
+        print(line + "; bitwise equal over two runs")
+        del q, k, v, g, bias, mask
     return total
 
 
@@ -303,13 +371,12 @@ def check_k3(gen, dtype):
         macs = cin * p + 9 * p * p + p * cout + (cin * cout if ds else 0)
         flops = 2.0 * N * h * w * macs
         nbytes = isz * (N * h * w * (cin + cout) + macs) + 4 * (2 * p + cout * (2 if ds else 1))
-        bound = record(total, f"K3 {name:14s} N={N} {h}x{w} Cin={cin} P={p} proj={ds}", dtype,
-                       err, rel, times, flops, nbytes, per_fwd)
+        record(total, f"K3 {name:14s} N={N} {h}x{w} Cin={cin} P={p} proj={ds}", dtype, err, rel,
+               times, flops, nbytes, per_fwd)
         ch, cw, stages = kbottle.pick_tile(h, w, cin, p, cout, 1, isz, ds)
         smem = kbottle._smem_bytes(ch, cw, p, 1, isz, cout, ds, stages)
-        print(f"    {flops / times[0] / 1e9:.1f} TFLOP/s, {100 * bound / times[0]:.1f}% of the "
-              f"bound, kernel / cuDNN {times[0] / times[2]:.3f}; tile {ch}x{cw}"
-              + (f", ring of {stages} slices" if stages else "") + f", {smem} B shared memory")
+        print(f"    tile {ch}x{cw}" + (f", ring of {stages} slices" if stages else "")
+              + f", {smem} B shared memory")
         del x, bw
     return total
 
@@ -531,13 +598,48 @@ def compare_step(cfg, model, opt, raw, targets) -> None:
 
 
 # device-kernel name fragments of each hand-written kernel
-KERNEL_NAMES = {"K1 attention forward": ("flash_fwd_tiled", "flash_fwd_rows"),
-                "K2 attention backward": ("bwd_query_pass", "bwd_key_pass", "bwd_rows"),
+KERNEL_NAMES = {"K1 attention forward": ("flash_fwd_mma", "flash_fwd_tiled", "flash_fwd_rows"),
+                "K2 attention backward": ("bwd_query_mma", "bwd_key_mma", "bwd_query_pass",
+                                          "bwd_key_pass", "bwd_rows"),
                 "K3 bottleneck forward": ("bottleneck_tc", "bottleneck_fwd")}
 # the launch counter behind each of them
 KERNEL_COUNTERS = {"K1 attention forward": kattn.LAUNCHES,
                    "K2 attention backward": kattn.BWD_LAUNCHES,
                    "K3 bottleneck forward": kbottle.LAUNCHES}
+# the bf16 entries that must run on the tensor cores
+TENSOR_CORE_ENTRIES = ("flash_fwd_mma", "bwd_query_mma", "bwd_key_mma", "bottleneck_tc")
+
+
+def entry_label(mangled: str) -> str:
+    """A kernel entry's readable name, e.g. flash_fwd_rows<bf16,1>, from its
+    mangled name."""
+    frag = next((f for frags in KERNEL_NAMES.values() for f in frags if f in mangled), None)
+    if frag is None:
+        return mangled
+    rest = mangled[mangled.index(frag) + len(frag):]
+    region = rest[:rest.find("Ev")] if rest.startswith("I") else ""
+    args = (["bf16"] if "__nv_bfloat16" in region else ["fp32"] if region.startswith("If")
+            else []) + re.findall(r"Li(\d+)E", region)
+    return frag + (f"<{','.join(args)}>" if args else "")
+
+
+def tensor_core_counts() -> dict:
+    """HMMA + HGMMA instructions per kernel entry in the SASS of every built
+    library (cuobjdump beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    counts = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        entry = None
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                entry = entry_label(found.group(1))
+                counts[entry] = 0
+            elif entry and re.search(r"\b(HMMA|HGMMA)\b", line):
+                counts[entry] += 1
+    return counts
 
 
 def profile_step(step, state, raw, targets, gen) -> None:
@@ -679,11 +781,16 @@ def main() -> int:
         entry = name
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                fn = line.split("'")[1]
-                entry = next((f for frags in KERNEL_NAMES.values() for f in frags if f in fn), fn)
-                entry += "".join(f"<{a}>" for a in re.findall(r"ILi(\d+)E", fn))
+                entry = entry_label(line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.split('info    :')[-1].strip()}")
+    counts = tensor_core_counts()
+    print("tensor-core instructions (HMMA/HGMMA) per entry in the built SASS: "
+          + ", ".join(f"{e} {n}" for e, n in counts.items()))
+    for frag in TENSOR_CORE_ENTRIES:
+        entries = {e: n for e, n in counts.items() if e.startswith(frag)}
+        if not entries or min(entries.values()) == 0:
+            raise AssertionError(f"{frag}: no tensor-core instructions in its SASS ({entries})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -718,15 +825,15 @@ def main() -> int:
     trained = train_phase()
     print(f"training phase took {time.time() - t0:.1f} s")
 
-    per_fwd = ("bf16 times summed over one served forward's calls at the serving path's "
-               "shapes (4 lanes x 64 frames)")
+    per_fwd = ("bf16 CUDA-event times summed over one served forward's calls at the serving "
+               "path's shapes (4 lanes x 64 frames)")
     meta = {
         "flash_attention": ("cuda", "stcat_tpu_torch/csrc/flash_attention.cu",
                             "stcat_tpu/kernels/attention.py:170", per_fwd),
         "flash_attention_bwd": ("cuda", "stcat_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "stcat_tpu/kernels/attention.py:251",
-                                "bf16 times summed over one training microbatch's calls "
-                                "(one 64-frame clip)"),
+                                "bf16 CUDA-event times summed over one training microbatch's "
+                                "calls (one 64-frame clip)"),
         "fused_bottleneck": ("cuda", "stcat_tpu_torch/csrc/bottleneck.cu",
                              "stcat_tpu/kernels/conv.py:158", per_fwd),
     }

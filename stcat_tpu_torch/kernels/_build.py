@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for ``sm_90a`` into ``stcat_tpu_torch/_build/`` (listed in
-.gitignore), under a file name that carries a hash of the source, so an
-edited source is rebuilt and a stale library is never loaded. ``build_all``
+.gitignore), under a file name that carries a hash of the source and of every
+shared header ``csrc/*.cuh``, so an edited source or header is rebuilt and a
+stale library is never loaded. ``build_all``
 starts one nvcc per source at once, for callers that want every kernel ready
 up front.
 """
@@ -40,8 +41,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(name: str, tmp: Path) -> List[str]:

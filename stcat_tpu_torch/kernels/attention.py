@@ -6,11 +6,25 @@ PyTorch versions.
 (stcat_tpu/kernels/attention.py): q [BH, Sq, Dk], k [BH, Sk, Dk],
 v [BH, Sk, Dv] (Dv may differ from Dk), bias [BH, Sk] fp32 with 0 =
 attendable and -1e30 = masked, scale 1/sqrt(Dk); returns [BH, Sq, Dv] in q's
-dtype. It is a ``torch.autograd.Function``: on CUDA tensors the forward
-launches K1 and the backward K2 (fp32 or bf16, Dk and Dv up to 128), or they
-raise; on CPU tensors they run ``attention_plain`` and
-``attention_bwd_plain``. Like the TPU kernel it saves q, k, v and bias, not
-the [Sq, Sk] weights, and the backward recomputes them.
+dtype. It is a ``torch.autograd.Function``: the forward runs K1 and the
+backward K2. Like the TPU kernel it saves q, k, v and bias, not the [Sq, Sk]
+weights, and the backward recomputes them.
+
+Dispatch (in the CUDA sources' entry functions):
+  * CPU tensors run ``attention_plain`` / ``attention_bwd_plain``;
+  * a CUDA tensor launches a kernel or raises (fp32 or bf16, Dk and Dv up to
+    128, contiguous):
+    - Sq < 8 (the decoders' cross-attention): the row kernels
+      ``flash_fwd_rows`` / ``bwd_rows``, either dtype;
+    - bf16: the tensor-core kernels ``flash_fwd_mma`` / ``bwd_query_mma`` +
+      ``bwd_key_mma`` (mma.sync, head widths zero-padded to 32, 64 or 128);
+    - fp32: the CUDA-core kernels ``flash_fwd_tiled`` / ``bwd_query_pass`` +
+      ``bwd_key_pass`` (the tensor cores would need TF32).
+  Tiles move by 16-byte copies when every head width is a multiple of 16
+  bytes and q, k, v (and g) start 16-byte aligned (``vector_loads``), and
+  element by element otherwise, so an offset view takes the same kernels.
+``LAUNCHES`` and ``BWD_LAUNCHES`` count the calls that launched K1 and K2,
+whatever the route.
 """
 
 from __future__ import annotations
@@ -27,6 +41,13 @@ LAUNCHES = _build.LaunchCounter()      # K1
 BWD_LAUNCHES = _build.LaunchCounter()  # K2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def vector_loads(tensors, dims, itemsize: int) -> bool:
+    """Whether the kernels may move tiles by 16-byte copies: every head width
+    a multiple of 16 bytes and every tensor 16-byte aligned."""
+    return (all(d * itemsize % 16 == 0 for d in dims)
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,14 +128,15 @@ def _check_grad(q, v, g) -> None:
 def _launch(q, k, v, bias) -> torch.Tensor:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     bh, sq, dk = q.shape
     sk, dv = v.shape[1], v.shape[2]
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
+    vec = vector_loads((q, k, v), (dk, dv), q.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             bh, sq, sk, dk, dv, _DTYPES[q.dtype], stream)
+             bh, sq, sk, dk, dv, _DTYPES[q.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     LAUNCHES.add()
@@ -125,7 +147,7 @@ def _launch_bwd(q, k, v, bias, g):
     """K2: (dq, dk, dv, dbias) on the card."""
     lib = _build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     bh, sq, dk = q.shape
     sk, dv = v.shape[1], v.shape[2]
@@ -134,10 +156,11 @@ def _launch_bwd(q, k, v, bias, g):
     # row statistics (m, l, delta) of the two-pass path (the Sq < 8 row
     # kernel leaves them unused)
     stats = torch.empty((3, bh * sq), dtype=torch.float32, device=q.device)
+    vec = vector_loads((q, k, v, g), (dk, dv), q.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
              dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
-             bh, sq, sk, dk, dv, _DTYPES[q.dtype], stream)
+             bh, sq, sk, dk, dv, _DTYPES[q.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES.add()

@@ -11,8 +11,10 @@ installed (the machine with the card):
 
 Tolerances are relative to max |plain|: fp32 differs in summation order only
 (1e-4); bf16 also rounds p (attention) and x1/y2 (bottleneck) at other points
-than the plain version (2e-2, about two bf16 ulps). The bottleneck's bf16
-inputs take its tensor-core kernel and fp32 inputs its CUDA-core kernel.
+than the plain version (2e-2, about two bf16 ulps). The bottleneck's and the
+attention kernels' bf16 inputs take their tensor-core kernels and fp32
+inputs their CUDA-core kernels; attention with Sq < 8 takes the row kernels
+in either dtype.
 """
 
 import numpy as np
@@ -56,11 +58,22 @@ def _rel_err(out, ref):
     return err / max(1.0, ref.float().abs().max().item())
 
 
+# shapes of the attention kernels' card tests beyond each test's own: a
+# partial 64-query tile (Sq 8, 15, 65), Sk no multiple of 64 (17, 293), Sk
+# streamed past one tile load (896, 2048), odd head widths on every route,
+# Dk = 2 Dv on the tensor cores, and a BH of several waves of blocks
+ATTN_EDGE_CASES = [
+    (5, 8, 17, 32, 32), (5, 15, 293, 32, 32), (4, 65, 65, 32, 32), (2, 100, 2048, 32, 32),
+    (2, 1, 2048, 32, 32), (3, 64, 40, 100, 70), (6, 65, 293, 64, 32), (600, 8, 40, 32, 32),
+    (8, 3, 896, 64, 64),
+]
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("bh,sq,sk,dk,dv", [
     (4, 37, 53, 32, 32), (8, 1, 223, 32, 32), (2, 130, 300, 32, 32), (8, 1, 53, 64, 32),
     (8, 8, 896, 32, 32), (3, 5, 40, 100, 70), (64, 293, 293, 32, 32),
-])
+] + ATTN_EDGE_CASES)
 def test_flash_attention_kernel_matches_plain(dev, dtype, tol, bh, sq, sk, dk, dv):
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev, dtype)
@@ -228,7 +241,7 @@ def _attn_inputs(dev, dtype, bh, sq, sk, dk, dv, seed=0):
     (2, 40, 17, 128, 128),   # widest heads, fewer keys than a tile
     (8, 65, 65, 32, 32),     # encoder temporal
     (64, 293, 293, 32, 32),  # encoder spatial
-])
+] + ATTN_EDGE_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, tol, bh, sq, sk, dk, dv):
     q, k, v, bias, g = _attn_inputs(dev, dtype, bh, sq, sk, dk, dv)
     before = pka.BWD_LAUNCHES.count
@@ -278,6 +291,49 @@ def test_fused_bottleneck_function_grads_on_card(dev, dtype, tol):
     torch.cuda.synchronize()
     for name, a, b in zip(("x",) + pkb.BlockWeights._fields, *grads):
         assert _rel_err(a, b) <= tol, name
+
+
+# one shape per K2 route: (dtype, bh, sq, sk, dk, dv)
+K2_ROUTES = [
+    (torch.bfloat16, 64, 293, 293, 32, 32),  # tensor-core passes
+    (torch.float32, 8, 65, 65, 32, 32),      # CUDA-core passes
+    (torch.bfloat16, 64, 1, 292, 64, 32),    # row kernel
+    (torch.float32, 8, 3, 300, 100, 70),     # row kernel, fp32, odd widths
+    (torch.bfloat16, 4, 40, 896, 100, 70),   # tensor-core passes, element-wise loads
+]
+
+
+@pytest.mark.parametrize("dtype,bh,sq,sk,dk,dv", K2_ROUTES)
+def test_flash_attention_bwd_is_deterministic(dev, dtype, bh, sq, sk, dk, dv):
+    """No atomics: two runs of K2 on the same inputs are bitwise equal."""
+    q, k, v, bias, g = _attn_inputs(dev, dtype, bh, sq, sk, dk, dv, seed=2)
+    first = pka.flash_attention_bwd(q, k, v, bias, g)
+    second = pka.flash_attention_bwd(q, k, v, bias, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("sq", [1, 37])
+def test_flash_attention_kernels_take_offset_views(dev, dtype, tol, sq):
+    """A contiguous view that starts one element past an aligned address (not
+    16-byte aligned) takes the same kernels, through the element-by-element
+    loads, and gives the aligned tensors' results."""
+    q, k, v, bias, g = _attn_inputs(dev, dtype, 4, sq, 53, 32, 32, seed=3)
+    shifted = []
+    for t in (q, k, v, g):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        buf[1:] = t.flatten()
+        shifted.append(buf[1:].view(t.shape))
+    sq_, sk_, sv_, sg_ = shifted
+    assert sq_.is_contiguous() and sq_.data_ptr() % 16 != 0
+    assert not pka.vector_loads((sq_, sk_, sv_, sg_), (32, 32), sq_.element_size())
+    torch.testing.assert_close(pka.flash_attention(sq_, sk_, sv_, bias),
+                               pka.flash_attention(q, k, v, bias), rtol=0, atol=0)
+    for a, b in zip(pka.flash_attention_bwd(sq_, sk_, sv_, bias, sg_),
+                    pka.flash_attention_bwd(q, k, v, bias, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_flash_attention_bwd_refuses_bad_inputs(dev):

@@ -8,7 +8,8 @@ the interpreted ``_fused_fwd``; the two autograd Functions' gradients on CPU
 tensors against autograd through the plain versions and against ``jax.vjp``
 of the JAX package's ``fused_bottleneck``. Inputs are numpy arrays from a
 seed handed to both. Tolerance: fp32, atol 2e-5, as in tests/test_kernels.py
-(summation order only).
+(summation order only); the attention plain versions in bf16 against the
+Pallas kernels in bf16, 2e-2 of the largest output.
 
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 compares them with their plain versions there.
@@ -55,6 +56,10 @@ ATTN_CASES = [
     (2, 130, 300, 32, 32),  # several k-blocks
     (8, 1, 53, 64, 32),     # concat cross-attention: Dk = 2 * Dv
     (8, 8, 896, 32, 32),    # tiny Sq, long Sk
+    (3, 8, 17, 32, 32),     # the card kernels' edges: Sq of a partial 64-row tile,
+    (2, 15, 293, 32, 32),   # Sk no multiple of 64, Sq = Sk, odd head widths
+    (2, 65, 65, 32, 32),
+    (2, 64, 40, 100, 70),
 ]
 
 
@@ -93,6 +98,10 @@ BWD_CASES = [  # Sq not a multiple of 8, Sk not of 128, Dk != Dv both ways
     (8, 1, 223, 32, 32),
     (8, 1, 53, 64, 32),
     (2, 13, 140, 16, 24),
+    (3, 8, 17, 32, 32),
+    (2, 15, 293, 32, 32),
+    (2, 65, 65, 32, 32),
+    (2, 64, 40, 100, 70),
 ]
 
 
@@ -104,6 +113,44 @@ def test_attention_bwd_plain_matches_pallas_flash_bwd(bh, sq, sk, dk, dv):
     theirs = ka._flash_bwd(*map(jnp.asarray, (q, k, v, bias, g)))
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), ours, theirs):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+# bf16: the plain versions round where the Pallas kernels do (q * scale, p or
+# w, d(logits), dq before its unscaling, dbias through k's dtype); what is
+# left is fp32 summation order showing through the bf16 outputs, about two
+# bf16 ulps of the largest output at most, the card tests' bf16 tolerance
+BF16_TOL = 2e-2
+BF16_CASES = [(4, 37, 53, 32, 32), (4, 1, 292, 64, 32), (3, 8, 17, 32, 32), (2, 15, 293, 32, 32),
+              (2, 65, 65, 32, 32), (2, 64, 40, 100, 70)]
+
+
+def _bf16_rel(ours, theirs, floor):
+    a, b = ours.float().numpy(), np.asarray(theirs.astype(jnp.float32))
+    return np.abs(a - b).max() / max(floor, np.abs(b).max())
+
+
+@pytest.mark.parametrize("bh,sq,sk,dk,dv", BF16_CASES)
+def test_attention_plain_bf16_matches_pallas_flash_fwd(bh, sq, sk, dk, dv):
+    q, k, v, bias = attn_inputs(bh, sq, sk, dk, dv)
+    ours = pka.attention_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                               torch.from_numpy(bias))
+    theirs = ka._flash_fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.asarray(bias))
+    assert ours.dtype == torch.bfloat16
+    assert _bf16_rel(ours, theirs, 1.0) <= BF16_TOL
+
+
+@pytest.mark.parametrize("bh,sq,sk,dk,dv", BF16_CASES)
+def test_attention_bwd_plain_bf16_matches_pallas_flash_bwd(bh, sq, sk, dk, dv):
+    """Each of dq, dk, dv, dbias against its own max |Pallas| (the gradients
+    are far below 1)."""
+    q, k, v, bias = attn_inputs(bh, sq, sk, dk, dv)
+    g = np.random.RandomState(1).randn(bh, sq, dv).astype(np.float32)
+    ours = pka.attention_bwd_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                                   torch.from_numpy(bias), torch.from_numpy(g).bfloat16())
+    theirs = ka._flash_bwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                           jnp.asarray(bias), jnp.asarray(g, jnp.bfloat16))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), ours, theirs):
+        assert _bf16_rel(a, b, 0.0) <= BF16_TOL, name
 
 
 @pytest.mark.parametrize("bh,sq,sk,dk,dv", [(4, 5, 20, 32, 32), (4, 1, 20, 64, 32)])
@@ -342,3 +389,48 @@ def test_bottleneck_pack_b_lays_out_the_kernels_tiles(n, taps, kin):
     mask = np.ones(packed.numel(), bool)
     mask[off.ravel()] = False
     assert (packed.numpy()[mask] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# K1/K2 wrapper: when the kernels may move tiles by 16-byte copies
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims,itemsize,offset,vec", [
+    ((32, 64), 2, 0, True),
+    ((32, 64), 2, 1, False),    # contiguous view one element past an aligned address
+    ((100, 64), 2, 0, False),   # 200-byte rows
+    ((100, 64), 4, 0, True),    # 400-byte rows
+    ((70, 64), 4, 0, False),    # 280-byte rows
+    ((8, 8), 2, 8, True),       # eight bf16 elements on: aligned again
+])
+def test_attention_vector_loads_rule(dims, itemsize, offset, vec):
+    """16-byte copies only when every head width is a multiple of 16 bytes and
+    every tensor starts 16-byte aligned; an offset view is still contiguous
+    but takes the element-by-element path."""
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    base = torch.zeros(4 * 64 + 16, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    aligned, view = base[:4 * 64].view(4, 64), base[offset:offset + 4 * 64].view(4, 64)
+    assert view.is_contiguous()
+    assert pka.vector_loads((aligned, view), dims, itemsize) == vec
+
+
+def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited source or shared header (csrc/*.cuh) names another library,
+    so a stale build is never loaded; the repo's csrc is not touched."""
+    import shutil
+
+    from stcat_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._lib_path(name) for name in _build.SOURCES}
+    header = csrc / "attention_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build._lib_path(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    src = csrc / "flash_attention.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build._lib_path("flash_attention") != after["flash_attention"]
+    assert _build._lib_path("flash_attention_bwd") == after["flash_attention_bwd"]
