@@ -41,6 +41,15 @@ Phases (any failure exits non-zero; no phase's error is caught):
      K3 forward, the K3 recompute in the backward, the rest) against the
      step's wall time; a kernel whose counter moved but whose device name
      shows no time fails the run.
+  5. the training loop: the same recipe through train.loop.train, the
+     port's training entry point, on the synthetic dataset (8 train and 4
+     test items of 128 frames at 320x240): loader, host-to-device prefetch,
+     the step, checkpoints at 2 and 4, validation with the EMA weights at 2,
+     then a second train() that resumes at 4 and takes step 5. K1 = K2 = 24
+     and K3 = 30 launches per training microbatch, K2 none in validation;
+     the step-4 checkpoint restores bitwise into a fresh model and
+     optimizer; it prints each iteration's step and data time, validation
+     seconds per batch, checkpoint bytes and seconds, and peak memory.
 Every phase prints its seconds. The line before the last is a JSON object
 listing every kernel's numbers; the last line is the device record.
 """
@@ -51,8 +60,10 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -432,6 +443,12 @@ def recipe_cfg(*opts):
     ])
 
 
+def _counts() -> dict:
+    return {"flash_attention": kattn.LAUNCHES.count,
+            "flash_attention_bwd": kattn.BWD_LAUNCHES.count,
+            "fused_bottleneck": kbottle.LAUNCHES.count}
+
+
 def serve_phase():
     cfg = recipe_cfg()
     t0 = time.time()
@@ -457,9 +474,7 @@ def serve_phase():
         for fut in futs:
             results.append(fut.result(timeout=900))
             latencies.append(time.time() - t_submit)
-    launches = {"flash_attention": kattn.LAUNCHES.count,
-                "flash_attention_bwd": kattn.BWD_LAUNCHES.count,
-                "fused_bottleneck": kbottle.LAUNCHES.count}
+    launches = _counts()
     print(f"  served {len(results)} requests; latency from submit (s): "
           + ", ".join(f"{x:.3f}" for x in latencies)
           + f"; max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -725,8 +740,7 @@ def train_phase():
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t = time.time()
-        metrics = step(state, raw, targets, gen)
-        torch.cuda.synchronize()
+        metrics = {k: v.item() for k, v in step(state, raw, targets, gen).items()}
         step_s.append(time.time() - t)
         mem = torch.cuda.max_memory_allocated() / 2**30
         print(f"  step {i}: loss={metrics['loss']:.5f} (bbox {metrics['loss_bbox']:.4f}, "
@@ -736,9 +750,7 @@ def train_phase():
         bad = [k for k, v in metrics.items() if not np.isfinite(v)]
         if bad:
             raise AssertionError(f"step {i}: non-finite losses {bad}")
-    launches = {"flash_attention": kattn.LAUNCHES.count,
-                "flash_attention_bwd": kattn.BWD_LAUNCHES.count,
-                "fused_bottleneck": kbottle.LAUNCHES.count}
+    launches = _counts()
     microbatches = TRAIN_STEPS * ACCUM
     print(f"  kernel launches while training ({microbatches} microbatches): {launches}")
     want = {"flash_attention": K1_PER_MICROBATCH * microbatches,
@@ -766,6 +778,166 @@ def train_phase():
 
     profile_step(step, state, raw, targets, gen)
     return launches
+
+
+def _flat_state(state) -> dict:
+    """Every tensor a checkpoint carries, by name, and the schedule count."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in state.ema.items()})
+    for i, st in state.optimizer.core.state_dict()["state"].items():
+        out.update({f"adamw.{i}.{k}": torch.as_tensor(v) for k, v in st.items()})
+    out["count"] = torch.tensor(state.optimizer.count)
+    return out
+
+
+def loop_phase():
+    """The training entry point at full width: train.loop.train on the
+    synthetic dataset (8 train and 4 test items of 128 frames at 320x240,
+    frames rendered), GRAD_ACCUM 2 of 2-clip batches, STCAT.DROPOUT 0,
+    checkpoints every 2 iterations, EMA validation every 2; 4 iterations,
+    then a second call resumes to 5. LOG_PERIOD is 1 here, so every
+    iteration writes its step and data time to metrics.jsonl. Launches are
+    split between training and validation by wrapping run_validation;
+    checkpoint stats are read from the Checkpointer the loop builds."""
+    from stcat_tpu_torch.core.logging import setup_logger
+    from stcat_tpu_torch.data.synthetic import SyntheticDataset, write_synthetic_cache
+    from stcat_tpu_torch.train import checkpoint as ckpt_mod
+    from stcat_tpu_torch.train import loop
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    saved = loop.LOG_PERIOD, loop.run_validation, loop.Checkpointer
+    val_launches, val_stats, ckpt_stats = [], [], []
+
+    def run_validation(*args, **kwargs):
+        before = _counts()
+        t = time.time()
+        res = saved[1](*args, **kwargs)
+        torch.cuda.synchronize()
+        val_launches.append({k: v - before[k] for k, v in _counts().items()})
+        val_stats.append((time.time() - t, res))
+        return res
+
+    class RecordingCheckpointer(ckpt_mod.Checkpointer):
+        def flush(self):
+            pending = self._pending
+            super().flush()
+            if pending is not None:
+                ckpt_stats.append(dict(self.last_stats))
+
+    try:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        for split, n in (("train", 8), ("test", 4)):
+            write_synthetic_cache(data, "VidSTG", split, n_items=n, n_frames=128, width=320,
+                                  height=240, seed=0)
+        cfg = recipe_cfg("MODEL.STCAT.DROPOUT", "0.0", "TPU.GRAD_ACCUM", str(ACCUM),
+                         "SOLVER.BATCH_SIZE", "2", "SOLVER.WARMUP_PROP", "0.0",
+                         "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.VAL_PERIOD", "2",
+                         "TPU.FRAME_BUCKETS", "[64,128]", "TENSORBOARD_DIR", "",
+                         "DATA_DIR", data, "OUTPUT_DIR", out)
+        logger = setup_logger("chip_smoke_loop", out)
+        loop.LOG_PERIOD, loop.run_validation, loop.Checkpointer = 1, run_validation, \
+            RecordingCheckpointer
+
+        torch.cuda.reset_peak_memory_stats()
+        for counter in (kattn.LAUNCHES, kattn.BWD_LAUNCHES, kbottle.LAUNCHES):
+            counter.reset()
+        t0 = time.time()
+        state, it = loop.train(cfg, lambda c, split: SyntheticDataset(c, split), logger=logger,
+                               max_iters=4, device="cuda")
+        first_s = time.time() - t0
+        launches = _counts()
+        tag = ckpt_mod.Checkpointer(out).last_step()
+        print(f"  train(max_iters=4) returned at iteration {it} in {first_s:.1f} s; "
+              f"last_checkpoint {tag}")
+        if (it, state.step, tag) != (4, 4, 4):
+            raise AssertionError(f"iteration {it}, state step {state.step}, tag {tag}: "
+                                 "expected 4, 4, 4")
+        if len(val_launches) != 1:
+            raise AssertionError(f"{len(val_launches)} validation passes, expected 1 (at 2)")
+        val_s, res = val_stats[0]
+        val = val_launches[0]
+        with open(os.path.join(out, "validation.jsonl")) as f:
+            batches = [json.loads(line) for line in f][0]["batches"]
+        train_launches = {k: v - val[k] for k, v in launches.items()}
+        microbatches = 4 * ACCUM
+        want = {"flash_attention": K1_PER_MICROBATCH * microbatches,
+                "flash_attention_bwd": K1_PER_MICROBATCH * microbatches,
+                "fused_bottleneck": K3_PER_MICROBATCH * microbatches}
+        want_val = {"flash_attention": K1_PER_MICROBATCH * batches, "flash_attention_bwd": 0,
+                    "fused_bottleneck": K3_PER_MICROBATCH * batches}
+        print(f"  launches: training ({microbatches} microbatches) {train_launches}, "
+              f"validation ({batches} stacked batches) {val}")
+        if train_launches != want or val != want_val:
+            raise AssertionError(f"launches: training {train_launches} (expected {want}), "
+                                 f"validation {val} (expected {want_val})")
+        bad = {k: v for k, v in res.items() if not 0.0 <= v <= 1.0}
+        if bad:
+            raise AssertionError(f"validation metrics outside [0, 1]: {bad}")
+        print(f"  validation at 2: {batches} stacked batches of 4 lanes x 64 frames in "
+              f"{val_s:.3f} s ({val_s / batches:.3f} s per batch); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k.endswith(("tiou", "_viou"))))
+
+        # the checkpoint of step 4 restores into a fresh model and optimizer bitwise
+        fresh_model = build_model(cfg, "cuda", seed=1)
+        fresh = create_train_state(cfg, fresh_model, make_optimizer(cfg, fresh_model, 4))
+        t = time.time()
+        fresh, at = ckpt_mod.Checkpointer(out).restore(fresh, step=4)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t
+        a, b = _flat_state(state), _flat_state(fresh)
+        differ = [k for k in a if not torch.equal(a[k], b.get(k))]
+        if at != 4 or a.keys() != b.keys() or differ:
+            raise AssertionError(f"restored step {at}; {len(differ)} tensors differ: {differ[:4]}")
+        print(f"  restore of step 4 into a fresh model and optimizer: {len(a)} tensors "
+              f"(parameters, buffers, EMA, AdamW moments, count) bitwise equal, "
+              f"{restore_s:.2f} s")
+        del a, b, fresh, fresh_model, state
+        torch.cuda.empty_cache()
+
+        for counter in (kattn.LAUNCHES, kattn.BWD_LAUNCHES, kbottle.LAUNCHES):
+            counter.reset()
+        t0 = time.time()
+        state, it = loop.train(cfg, lambda c, split: SyntheticDataset(c, split), logger=logger,
+                               max_iters=5, device="cuda")
+        resumed = _counts()
+        tag = ckpt_mod.Checkpointer(out).last_step()
+        print(f"  train(max_iters=5) resumed at 4 and returned at iteration {it} in "
+              f"{time.time() - t0:.1f} s; last_checkpoint {tag}; launches {resumed}")
+        want = {"flash_attention": K1_PER_MICROBATCH * ACCUM,
+                "flash_attention_bwd": K1_PER_MICROBATCH * ACCUM,
+                "fused_bottleneck": K3_PER_MICROBATCH * ACCUM}
+        if (it, tag) != (5, 5) or resumed != want or len(val_launches) != 1:
+            raise AssertionError(f"resume: iteration {it}, tag {tag}, launches {resumed} "
+                                 f"(expected {want}), {len(val_launches)} validation passes "
+                                 "(expected none after the first call's)")
+        for k, v in resumed.items():
+            launches[k] += v
+
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows] != [1, 2, 3, 4, 5]:
+            raise AssertionError(f"metrics.jsonl steps {[r['step'] for r in rows]}")
+        for r in rows:
+            missing = {"step_time", "data_time", "hbm_peak_gb"} - set(r)
+            if missing or not np.isfinite(r["loss"]):
+                raise AssertionError(f"metrics.jsonl step {r['step']}: missing {missing}, "
+                                     f"loss {r.get('loss')}")
+        print("  per iteration (step_time = from asking for the batch to the losses read, "
+              "s; data_time = waiting on the loader and the copy, s):")
+        for r in rows:
+            print(f"    {r['step']}: loss {r['loss']:.5f} step_time {r['step_time']:.3f} "
+                  f"data_time {r['data_time']:.4f} hbm_peak_gb {r['hbm_peak_gb']:.2f}")
+        for s in ckpt_stats:
+            print(f"  checkpoint {s['step']}: {s['bytes']} bytes, device snapshot "
+                  f"{s['snapshot_s']:.3f} s, committed {s['commit_s']:.3f} s after save()")
+        if [s["step"] for s in ckpt_stats] != [2, 4, 5]:
+            raise AssertionError(f"checkpoints committed at {[s['step'] for s in ckpt_stats]}")
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated over both calls)")
+        return launches
+    finally:
+        loop.LOG_PERIOD, loop.run_validation, loop.Checkpointer = saved
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -824,6 +996,12 @@ def main() -> int:
     t0 = time.time()
     trained = train_phase()
     print(f"training phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("the training loop at full width:")
+    t0 = time.time()
+    looped = loop_phase()
+    print(f"loop phase took {time.time() - t0:.1f} s")
 
     per_fwd = ("bf16 CUDA-event times summed over one served forward's calls at the serving "
                "path's shapes (4 lanes x 64 frames)")
@@ -840,7 +1018,7 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces, basis) in meta.items():
         t = totals[name]
-        by_path = {"serving": served[name], "training": trained[name]}
+        by_path = {"serving": served[name], "training": trained[name], "loop": looped[name]}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -279,3 +279,11 @@ def merge_from_file(cfg: Config, path: str) -> Config:
 
 def default_config() -> Config:
     return Config()
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """The config as YAML, loadable by merge_from_file."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)

@@ -56,6 +56,60 @@ class RawVideoBatch:
     out_canvas: Tuple[int, int] = (0, 0)
 
 
+_PER_CLIP = ("token_ids", "token_valid", "out_size", "affine_scale", "affine_off")
+
+
+def subsample_stream(batch, start: int):
+    """The even (start 0) or odd (start 1) frame stream of a VideoBatch or
+    RawVideoBatch: every [B, T, ...] field sliced along the frame axis,
+    per-clip fields kept. Works on numpy arrays and tensors."""
+    t = batch.frame_valid.shape[1]
+    upd = {}
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        if (getattr(v, "ndim", 0) >= 2 and v.shape[1] == t and f.name not in _PER_CLIP):
+            upd[f.name] = v[:, start::2]
+    return dataclasses.replace(batch, **upd)
+
+
+def _stack_two(b1, b2, pad, cat):
+    """b1 and b2 concatenated along the batch axis; frame-axis fields of b2
+    one frame shorter than b1's (an odd T) zero-padded first."""
+    t = b1.frame_valid.shape[1]
+    upd = {}
+    for f in dataclasses.fields(b1):
+        v1, v2 = getattr(b1, f.name), getattr(b2, f.name)
+        if not hasattr(v1, "ndim"):
+            if v1 != v2:
+                raise ValueError(f"{f.name}: the two streams differ ({v1} vs {v2})")
+            continue
+        if v1.ndim >= 2 and v1.shape[1] != v2.shape[1] and v2.shape[1] in (t - 1, t):
+            v2 = pad(v2, t - v2.shape[1])
+        upd[f.name] = cat(v1, v2)
+    return dataclasses.replace(b1, **upd)
+
+
+def stack_streams(b1, b2):
+    """Host (numpy) stacking of the two temporal streams: one forward of
+    batch 2B instead of two of B."""
+    def pad(v, n):
+        widths = [(0, 0)] * v.ndim
+        widths[1] = (0, n)
+        return np.pad(v, widths)
+    return _stack_two(b1, b2, pad, lambda a, b: np.concatenate([np.asarray(a), np.asarray(b)], 0))
+
+
+def device_split_streams(batch):
+    """subsample_stream(0), subsample_stream(1) and stack_streams of a batch
+    already on the device, in torch: [B, T, ...] frame-axis fields become
+    [2B, ceil(T/2), ...] and per-clip fields are repeated. The batch crosses
+    to the device once and the split is a strided slice and a concat there."""
+    def pad(v, n):
+        return torch.cat([v, v.new_zeros((v.shape[0], n) + tuple(v.shape[2:]))], 1)
+    return _stack_two(subsample_stream(batch, 0), subsample_stream(batch, 1), pad,
+                      lambda a, b: torch.cat([a, b], 0))
+
+
 def to_device(batch, device: torch.device):
     """Copy every array field of a batch container to ``device`` as a tensor."""
     upd = {}

@@ -1,5 +1,14 @@
-"""Host-side eval transform plan (numpy): shortest-side resize with a max cap,
-composed into the affine map the on-device resampler executes."""
+"""Host-side transform plans (numpy), composed into the affine map the
+on-device resampler executes (``ops/preprocess.py``).
+
+Eval: one resize of the shortest side to RESOLUTION (max 720). Train: hflip
+(with the left/right word swap in the sentence), then RandomSelect of a
+multi-scale resize or resize -> RandomSizeCrop -> resize. The box math is
+done here on the host; every random draw comes from the caller's
+``np.random.Generator``, in the JAX package's order, so a seed gives the
+same plan, boxes and text there and here. The host pixel path (replaying
+the plan on float frames) is not ported: pixels are resampled on the card.
+"""
 
 from __future__ import annotations
 
@@ -24,11 +33,51 @@ def resize_keep_ratio(size: int, image_hw: Tuple[int, int],
     return (size, int(size * w / h))
 
 
+def boxes_resize(boxes: np.ndarray, ratios: Tuple[float, float]) -> np.ndarray:
+    rw, rh = ratios
+    return boxes * np.asarray([rw, rh, rw, rh], np.float32)
+
+
+def boxes_hflip(boxes: np.ndarray, width: float) -> np.ndarray:
+    x0, y0, x1, y1 = boxes.T
+    return np.stack([width - x1, y0, width - x0, y1], axis=1)
+
+
+def boxes_crop(boxes: np.ndarray, region: Tuple[int, int, int, int]) -> np.ndarray:
+    """region = (top, left, h, w)."""
+    top, left, h, w = region
+    x0 = np.clip(boxes[:, 0] - left, 0, w)
+    y0 = np.clip(boxes[:, 1] - top, 0, h)
+    x1 = np.clip(boxes[:, 2] - left, 0, w)
+    y1 = np.clip(boxes[:, 3] - top, 0, h)
+    return np.stack([x0, y0, x1, y1], axis=1)
+
+
+def crop_valid(boxes: np.ndarray, region) -> bool:
+    c = boxes_crop(boxes, region)
+    return bool(np.all((c[:, 0] < c[:, 2]) & (c[:, 1] < c[:, 3])))
+
+
+def boxes_to_normalized_cxcywh(boxes: np.ndarray, image_hw: Tuple[int, int]) -> np.ndarray:
+    h, w = image_hw
+    x0, y0, x1, y1 = boxes.T
+    x0, x1 = x0 / w, x1 / w
+    y0, y1 = y0 / h, y1 / h
+    return np.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], axis=1).astype(np.float32)
+
+
+def swap_left_right(text: str) -> str:
+    """A flipped clip's sentence: 'left' and 'right' swapped."""
+    return (text.replace("right", "*&^special^&*").replace("left", "right")
+            .replace("*&^special^&*", "left"))
+
+
 @dataclass
 class TransformPlan:
-    """Pixel work, not yet done: ``ops`` is ("resize", oh, ow) steps on the
-    (post-flip) source; ``affine`` = (ay, by, ax, bx) maps output coords to
-    source coords, y_src = ay * y_out + by (x likewise)."""
+    """Pixel work, not yet done: ``ops`` is ("resize", oh, ow) and ("crop",
+    top, left, h, w) steps on the (post-flip) source; ``affine`` = (ay, by,
+    ax, bx) maps output coords to source coords, y_src = ay * y_out + by (x
+    likewise)."""
 
     src_hw: Tuple[int, int]
     flip: bool
@@ -59,23 +108,77 @@ def _compose_affine(ops: List[tuple], src_hw: Tuple[int, int]):
 
 
 class VideoTransform:
-    """Eval transform: one resize of the shortest side to RESOLUTION (max 720)."""
+    """The train or eval transform plan of a clip."""
 
-    def __init__(self, resolution: int, max_size: int = 720):
+    def __init__(self, resolution: int, is_train: bool = False, aug_scale: bool = True,
+                 flip_prob: float = 0.5, max_size: int = 720, aug_crop: bool = True):
         self.resolution = resolution
+        self.is_train = is_train
+        self.flip_prob = flip_prob
         self.max_size = max_size
+        self.aug_crop = aug_crop
+        self.scales = ([resolution - 32 * i for i in range(4) if resolution - 32 * i > 0]
+                       if aug_scale else [resolution])
 
-    def plan(self, src_hw: Tuple[int, int], boxes: np.ndarray, text: str):
-        """Returns (plan, boxes_xyxy_out, text)."""
+    def _sample_crop(self, hw, boxes, rng, min_size=384, max_size=600, max_try=50):
+        """RandomSizeCrop region that keeps every box non-empty; None = no
+        crop this draw."""
+        h, w = hw
+        for _ in range(max_try):
+            tw = int(rng.integers(min_size, min(w, max_size) + 1))
+            th = int(rng.integers(min_size, min(h, max_size) + 1))
+            if th >= h and tw >= w:
+                return None
+            top = int(rng.integers(0, max(h - th, 0) + 1))
+            left = int(rng.integers(0, max(w - tw, 0) + 1))
+            region = (top, left, min(th, h), min(tw, w))
+            if crop_valid(boxes, region):
+                return region
+        return None
+
+    def plan(self, src_hw: Tuple[int, int], boxes: np.ndarray, text: str,
+             rng: Optional[np.random.Generator] = None):
+        """Returns (plan, boxes_xyxy_out, text). A train transform draws from
+        ``rng``, which it then requires."""
+        if self.is_train and rng is None:
+            raise ValueError("the train transform needs an np.random.Generator")
         h, w = src_hw
-        oh, ow = resize_keep_ratio(self.resolution, (h, w), self.max_size)
-        boxes = boxes * np.asarray([ow / w, oh / h, ow / w, oh / h], np.float32)
-        ops = [("resize", oh, ow)] if (oh, ow) != (h, w) else []
+        flip = False
+        if self.is_train and rng.random() < self.flip_prob:
+            flip = True
+            boxes = boxes_hflip(boxes, w)
+            text = swap_left_right(text)
+        ops: List[tuple] = []
+        cur = (h, w)
+
+        def add_resize(size: int, max_size: Optional[int]):
+            nonlocal cur, boxes
+            oh, ow = resize_keep_ratio(size, cur, max_size)
+            boxes = boxes_resize(boxes, (ow / cur[1], oh / cur[0]))
+            if (oh, ow) != cur:
+                ops.append(("resize", oh, ow))
+                cur = (oh, ow)
+
+        if not self.is_train:
+            add_resize(self.resolution, self.max_size)
+        elif (not self.aug_crop) or rng.random() < 0.5:
+            add_resize(int(rng.choice(self.scales)), self.max_size)
+        else:
+            add_resize(int(rng.choice([400, 500, 600])), None)
+            region = self._sample_crop(cur, boxes, rng)
+            if region is not None:
+                top, left, ch, cw = region
+                boxes = boxes_crop(boxes, region)
+                ops.append(("crop", top, left, ch, cw))
+                cur = (ch, cw)
+            add_resize(int(rng.choice(self.scales)), self.max_size)
+
         affine, out_hw = _compose_affine(ops, (h, w))
-        return TransformPlan(src_hw=(h, w), flip=False, ops=ops, out_hw=out_hw,
+        return TransformPlan(src_hw=(h, w), flip=flip, ops=ops, out_hw=out_hw,
                              affine=affine), boxes, text
 
 
-def build_transforms(cfg) -> VideoTransform:
-    """The eval transform for a config (the train augmentation is not ported)."""
-    return VideoTransform(resolution=cfg.INPUT.RESOLUTION)
+def build_transforms(cfg, is_train: bool = False) -> VideoTransform:
+    return VideoTransform(resolution=cfg.INPUT.RESOLUTION, is_train=is_train,
+                          aug_scale=cfg.INPUT.AUG_SCALE, flip_prob=cfg.INPUT.FLIP_PROB_TRAIN,
+                          aug_crop=cfg.INPUT.AUG_CROP)

@@ -1,12 +1,29 @@
-"""Two-stream temporal supersampling: decode postprocessed rows, merge the
-even/odd streams and linearly interpolate boxes back to the full frame rate.
-Host-side python on small numpy arrays."""
+"""Evaluation: two-stream temporal supersampling and the eval loop.
+
+Test clips are sampled at twice the train frame rate and split into their
+even and odd frame streams, which run through the model as one stacked
+batch of 2B clips; the per-frame boxes of the two streams are merged and
+linearly interpolated back to the full frame rate, and the span is the
+min/max envelope of the two streams' spans. Everything after postprocess
+is host-side python on small numpy arrays.
+"""
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List
 
 import numpy as np
+import torch
+
+from ..core.batch import stack_streams, subsample_stream
+from ..core.dist import is_main_process, synchronize
+from ..core.prefetch import prefetch_to_device
+from ..models.postprocess import postprocess
+from ..train.step import eval_device_split_active, make_eval_forward
+
+# device-to-host reads wait until this many stacked batches are in flight
+PIPELINE_DEPTH = 2
 
 
 def linear_interp_boxes(bbox_dict: Dict[int, List[List[float]]]) -> Dict:
@@ -61,3 +78,64 @@ def merge_two_streams(boxes, s_idx, e_idx, frame_valid, m1, m2):
             "qtype": temp1[vid].get("qtype", "none"),
         }
     return bbox_pred, temp_pred
+
+
+def subsample_batch(batch, meta: List[Dict], start: int):
+    """The even (0) or odd (1) frame stream of a batch and its meta."""
+    return (subsample_stream(batch, start),
+            [{**m, "frame_ids": m["frame_ids"][start::2]} for m in meta])
+
+
+def _orig_sizes(meta: List[Dict], device) -> torch.Tensor:
+    return torch.tensor([m["ori_size"] for m in meta], dtype=torch.int32).to(device)
+
+
+def do_eval(cfg, model, loader, evaluator, logger=None):
+    """A full evaluation pass of ``model`` (on its device) over ``loader``'s
+    raw batches; returns ``evaluator.summarize()``.
+
+    Both streams of a batch go through one stacked forward. With
+    TPU.EVAL_DEVICE_SPLIT the batch crosses to the device unsplit and the
+    forward splits it there; otherwise the prefetch thread splits and stacks
+    it on the host. Either way the copy runs ahead on the prefetch thread,
+    and the results of a batch are read back only once PIPELINE_DEPTH later
+    batches are queued behind it, so the host's decoding of one batch
+    overlaps the device's work on the next ones."""
+    fwd = make_eval_forward(cfg, model)
+    device_split = eval_device_split_active(cfg)
+    device = next(model.parameters()).device
+
+    def host_side(item):
+        batch, _targets, meta = item
+        b1, m1 = subsample_batch(batch, meta, 0)
+        b2, m2 = subsample_batch(batch, meta, 1)
+        return (batch if device_split else stack_streams(b1, b2)), m1, m2
+
+    def drain(item):
+        res, fv, m1, m2 = item
+        boxes, s_idx, e_idx, fv = (t.cpu().numpy() for t in (*res, fv))
+        bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, fv, m1, m2)
+        evaluator.update(bbox_pred)
+        evaluator.video_update(temp_pred)
+
+    stream = prefetch_to_device((host_side(x) for x in loader), device, depth=2)
+    pending: deque = deque()
+    try:
+        for batch, m1, m2 in stream:
+            out = fwd(batch)
+            fv = out["frame_valid"] if device_split else batch.frame_valid
+            with torch.inference_mode():
+                res = postprocess(out["pred_boxes"], out["pred_sted"],
+                                  _orig_sizes(m1 + m2, device), fv)
+            pending.append((res, fv, m1, m2))
+            if len(pending) > PIPELINE_DEPTH:
+                drain(pending.popleft())
+        while pending:
+            drain(pending.popleft())
+    finally:
+        stream.close()
+    synchronize()
+    evaluator.synchronize_between_processes()
+    if logger is not None and is_main_process():
+        logger.info("Inference complete; computing metrics")
+    return evaluator.summarize()

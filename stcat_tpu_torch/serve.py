@@ -32,23 +32,24 @@ from .eval.engine import _decode_rows, merge_two_streams
 from .models import build_model
 from .models.postprocess import postprocess
 from .ops.misc import resolve_device
-from .ops.preprocess import preprocess
+from .train.checkpoint import load_weights_for_eval
+from .train.step import make_eval_forward
 
 
 def eval_forward(cfg, model, raw: RawVideoBatch) -> Dict[str, torch.Tensor]:
     """On-device preprocess + STCATNet forward of a host-stacked raw batch;
     returns the postprocess inputs."""
-    batch = preprocess(raw, tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD))
-    out = model(batch)
-    return {"pred_boxes": out["pred_boxes"], "pred_sted": out["pred_sted"]}
+    return make_eval_forward(cfg, model, device_split=False)(raw)
 
 
 class GroundingPredictor:
     """Owns the model, weights, tokenizer and device.
 
     ``state_dict``: a port state_dict to load (e.g. from
-    ``convert.from_jax_variables``); None keeps the fresh init drawn from
-    ``seed``. predict() is thread-safe (calls serialize on a lock); use
+    ``convert.from_jax_variables``); else MODEL.WEIGHT, a reference-named
+    torch file or a training run's checkpoint directory (EMA weights
+    preferred), is loaded; with neither, the fresh init drawn from ``seed``
+    stays. predict() is thread-safe (calls serialize on a lock); use
     MicroBatcher to batch concurrent requests.
     """
 
@@ -59,15 +60,12 @@ class GroundingPredictor:
         self.max_batch = max(1, int(max_batch))
         self.tokenizer = build_tokenizer(cfg)
         check_tokenizer_for_weights(cfg, self.tokenizer, cfg.MODEL.WEIGHT)
-        if cfg.MODEL.WEIGHT:
-            raise NotImplementedError(
-                "MODEL.WEIGHT checkpoints are not loaded by the port yet; pass a "
-                "state_dict (see ROADMAP.md, Queue A)"
-            )
         self.transform = build_transforms(cfg)
         self.model = build_model(cfg, self.device, seed)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        else:
+            load_weights_for_eval(self.model, cfg.MODEL.WEIGHT)
         self._lock = threading.Lock()
 
     def _raw_sample(self, frames: np.ndarray, text: str, item_id, fids, pad: bool) -> Dict:

@@ -136,6 +136,20 @@ class GroupedOptimizer:
         self.core.step()
         self.count += 1
 
+    def state_dict(self) -> Dict:
+        """The core's state (moments, per-parameter step), the schedule
+        position ``count`` and the group names, for a checkpoint."""
+        return {"core": self.core.state_dict(), "count": self.count,
+                "groups": [g["name"] for g in self.core.param_groups]}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        groups = [g["name"] for g in self.core.param_groups]
+        if list(sd["groups"]) != groups:
+            raise ValueError(f"optimizer groups {list(sd['groups'])} in the state, "
+                             f"{groups} in this optimizer")
+        self.core.load_state_dict(sd["core"])
+        self.count = int(sd["count"])
+
 
 def make_optimizer(cfg, model: nn.Module, num_training_steps: int) -> GroupedOptimizer:
     return GroupedOptimizer(cfg, model, num_training_steps)

@@ -14,8 +14,9 @@ whole batch, so the accumulated loss and gradients equal the full batch's,
 and each draws its dropout masks from the step's generator in turn. Then one
 optimizer update and the EMA. The model, optimizer and EMA are updated in
 place; the step returns the loss and its terms, averaged over microbatches,
-as floats. The mesh, tensor- and sequence-parallel branches of the JAX step
-belong to the multi-GPU slice and raise here.
+as device tensors. The mesh, tensor- and sequence-parallel branches of the
+JAX step belong to the multi-GPU slice and raise here. ``make_eval_forward``
+is the inference forward of evaluation and serving.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from ..core.batch import RawVideoBatch, VideoTargets, to_device
+from ..core.batch import RawVideoBatch, VideoTargets, device_split_streams, to_device
+from ..core.dist import get_world_size
 from ..ops.misc import resolve_device
 from ..ops.preprocess import preprocess
 from .criterion import build_weight_dict, video_stg_loss
@@ -103,13 +105,16 @@ def accumulate_grads(cfg, model: nn.Module, optimizer: GroupedOptimizer, batch,
 
 def make_train_step(cfg, model: nn.Module, optimizer: GroupedOptimizer, device=None
                     ) -> Callable[[TrainState, object, VideoTargets, torch.Generator],
-                                  Dict[str, float]]:
-    """Returns step(state, batch, targets, generator) -> {"loss", "loss_*"}."""
+                                  Dict[str, torch.Tensor]]:
+    """Returns step(state, batch, targets, generator) -> {"loss", "loss_*"},
+    detached 0-d tensors on the device: the step never waits for the card,
+    and the caller reads them when it needs them (the loop, every
+    LOG_PERIOD steps)."""
     _check_cfg(cfg)
     dev = resolve_device(device)
 
     def step(state: TrainState, batch, targets: VideoTargets,
-             generator: Optional[torch.Generator] = None) -> Dict[str, float]:
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this step")
         batch, targets = to_device(batch, dev), to_device(targets, dev)
@@ -118,7 +123,38 @@ def make_train_step(cfg, model: nn.Module, optimizer: GroupedOptimizer, device=N
         if state.ema is not None:
             ema_update(state.ema, model, cfg.MODEL.EMA_DECAY)
         state.step += 1
-        values = torch.stack(list(sums.values())).tolist()
-        return dict(zip(sums, values))
+        return sums
 
     return step
+
+
+def eval_device_split_active(cfg) -> bool:
+    """Whether the eval forward splits the two test streams on the device
+    (TPU.EVAL_DEVICE_SPLIT); single-process only."""
+    return bool(cfg.TPU.EVAL_DEVICE_SPLIT) and get_world_size() == 1
+
+
+def make_eval_forward(cfg, model: nn.Module, device_split: Optional[bool] = None
+                      ) -> Callable[[object], Dict[str, torch.Tensor]]:
+    """fwd(batch) -> the postprocess inputs {"pred_boxes", "pred_sted"} of a
+    raw batch on the model's device, in inference mode. With the device
+    split (``device_split`` None: ``eval_device_split_active(cfg)``) the
+    batch arrives unsplit, is split into its even and odd streams and
+    stacked here, and the split frame mask is returned as "frame_valid";
+    without it the batch arrives stacked (serve.py, the host split)."""
+    split = eval_device_split_active(cfg) if device_split is None else bool(device_split)
+    mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
+
+    def fwd(batch) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            if split:
+                batch = device_split_streams(batch)
+            if isinstance(batch, RawVideoBatch):
+                batch = preprocess(batch, mean, std)
+            out = model.eval()(batch)
+            ret = {"pred_boxes": out["pred_boxes"], "pred_sted": out["pred_sted"]}
+            if split:
+                ret["frame_valid"] = batch.frame_valid
+            return ret
+
+    return fwd

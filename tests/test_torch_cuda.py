@@ -457,3 +457,120 @@ def test_tiny_model_training_gradients_on_card_match_cpu(dev):
             continue
         np.testing.assert_allclose(grads_g[name].cpu().numpy(), g.numpy(), atol=2e-4, rtol=1e-3,
                                    err_msg=name)
+
+
+def test_prefetch_to_device_orders_copies_before_their_readers(dev):
+    """prefetch_to_device on the card: 12 batches of 16 MB each, copied on
+    the prefetch stream while the consumer queues a long matmul chain ahead
+    of every read and drops each batch at once. Every read sees its batch
+    intact: the consumer's stream waits for the copy, and record_stream
+    keeps a batch's memory from the next copies until the read has run."""
+    from stcat_tpu_torch.core.batch import VideoTargets
+    from stcat_tpu_torch.core.prefetch import prefetch_to_device
+
+    n = 1 << 20
+    items = [(VideoTargets(boxes=np.full((n, 4), i + 1, np.float32),
+                           box_valid=np.ones((n,), bool),
+                           actioness=np.arange(n, dtype=np.float32) * (i + 1),
+                           temp_bound=np.asarray([[i, i + 1]], np.int32)), i) for i in range(12)]
+    busy = torch.randn(2048, 2048, device=dev)
+    sums = []
+    for targets, i in prefetch_to_device(iter(items), dev, depth=3):
+        assert targets.boxes.is_cuda and targets.boxes.shape == (n, 4)
+        for _ in range(8):
+            busy = torch.tanh(busy @ busy) * 0.5
+        sums.append((i, targets.boxes.sum(), targets.actioness[-1].clone(),
+                     targets.temp_bound.clone()))
+        del targets
+    torch.cuda.synchronize()
+    assert [i for i, *_ in sums] == list(range(12))
+    for i, s, last, bound in sums:
+        assert s.item() == 4.0 * n * (i + 1), i
+        assert last.item() == float((n - 1) * (i + 1)), i
+        assert bound.tolist() == [[i, i + 1]], i
+
+
+def test_checkpoint_of_card_tensors_restores_bitwise(dev, tmp_path):
+    """A TrainState on the card saved without blocking, the next AdamW step
+    taken at once in place: the checkpoint holds the state of the save,
+    and a fresh card state restored from it equals that state bitwise."""
+    from stcat_tpu_torch.models import build_model
+    from stcat_tpu_torch.train.checkpoint import Checkpointer
+    from stcat_tpu_torch.train.optimizer import make_optimizer
+    from stcat_tpu_torch.train.step import create_train_state
+
+    cfg = tiny_cfg()
+
+    def state_on_card(seed):
+        model = build_model(cfg, device="cuda", seed=seed)
+        return create_train_state(cfg, model, make_optimizer(cfg, model, 10))
+
+    def step(state, scale):
+        for p in state.model.parameters():
+            p.grad = torch.full_like(p, scale)
+        state.optimizer.step()
+        with torch.no_grad():
+            for n_, p in state.model.named_parameters():
+                state.ema[n_].mul_(0.5).add_(p, alpha=0.5)
+        state.step += 1
+
+    def flat(state):
+        out = {f"m.{k}": v.clone() for k, v in state.model.state_dict().items()}
+        out.update({f"e.{k}": v.clone() for k, v in state.ema.items()})
+        for i, st in state.optimizer.core.state_dict()["state"].items():
+            out.update({f"o.{i}.{k}": torch.as_tensor(v).clone() for k, v in st.items()})
+        return out
+
+    state = state_on_card(0)
+    step(state, 1.0)
+    want = flat(state)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(1, state)
+    step(state, -3.0)
+    ckpt.flush()
+    fresh, at = ckpt.restore(state_on_card(4))
+    assert at == 1 and fresh.optimizer.count == 1
+    got = flat(fresh)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].device == want[k].device and torch.equal(got[k], want[k]), k
+
+
+def test_tiny_train_loop_on_card_matches_cpu(dev, tmp_path):
+    """train() for 2 iterations of the tiny model (every kernel route on,
+    fp32, no dropout, SGD) on the synthetic dataset, on the card and on the
+    CPU: parameters and EMA at atol 2e-4 / rtol 1e-3, the tiny-model
+    gradient tolerance (SGD moves each weight in proportion to its
+    gradient); K1, K2 and K3 launched on the card only."""
+    from stcat_tpu_torch.config import merge_from_list
+    from stcat_tpu_torch.data.synthetic import make_synthetic_dataset
+    from stcat_tpu_torch.train.loop import train
+
+    lrs = [k for g in ("BASE", "TEMP", "TEXT", "VIS_BACKBONE") for k in (f"SOLVER.{g}_LR", 0.5)]
+    base = tiny_cfg(["MODEL.VISION_BACKBONE.DEPTHS", "[1,2,1,1]", "MODEL.STCAT.DROPOUT", 0.0,
+                     "MODEL.STCAT.HEAD_DROPOUT", 0.0, "MODEL.TEXT_MODEL.DROPOUT", 0.0,
+                     "INPUT.RESOLUTION", 64, "INPUT.TRAIN_SAMPLE_NUM", 8,
+                     "INPUT.MAX_QUERY_LEN", 12, "TPU.FRAME_BUCKETS", "[8]",
+                     "SOLVER.BATCH_SIZE", 2, "SOLVER.MAX_EPOCH", 2, "SOLVER.TO_VAL", "false",
+                     "SOLVER.WARMUP_PROP", 0.0, "SOLVER.OPTIMIZER", "sgd", *lrs,
+                     "DATALOADER.NUM_WORKERS", 1, "DATA_DIR", str(tmp_path / "data")])
+    runs = {}
+    for device in ("cpu", "cuda"):
+        cfg = merge_from_list(base, ["OUTPUT_DIR", str(tmp_path / device)])
+        counts = (pka.LAUNCHES.count, pka.BWD_LAUNCHES.count, pkb.LAUNCHES.count)
+        state, it = train(cfg, lambda c, s: make_synthetic_dataset(c, s, n_items=4, n_frames=12),
+                          max_iters=2, device=device)
+        launched = tuple(c1 - c0 for c0, c1 in zip(counts, (pka.LAUNCHES.count,
+                                                             pka.BWD_LAUNCHES.count,
+                                                             pkb.LAUNCHES.count)))
+        assert it == 2
+        # per step (one microbatch of 2 clips): 8 attention calls, each with
+        # a K2 in the backward, and layer1's and layer2's stride-1 blocks
+        assert launched == ((0, 0, 0) if device == "cpu" else (16, 16, 4))
+        runs[device] = state
+    for name, p in runs["cpu"].model.named_parameters():
+        np.testing.assert_allclose(runs["cuda"].model.state_dict()[name].cpu().numpy(),
+                                   p.detach().numpy(), atol=2e-4, rtol=1e-3, err_msg=name)
+        np.testing.assert_allclose(runs["cuda"].ema[name].cpu().numpy(),
+                                   runs["cpu"].ema[name].numpy(), atol=2e-4, rtol=1e-3,
+                                   err_msg=name)

@@ -243,3 +243,62 @@ def test_current_lrs_match_jax(stype):
         assert set(a) == set(b)
         for g in a:
             np.testing.assert_allclose(a[g], b[g], rtol=1e-6, atol=0, err_msg=f"{g} @ {step}")
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam", "rmsprop", "sgd"])
+def test_optimizer_state_dict_resumes_bitwise(name):
+    """GroupedOptimizer.state_dict() through torch.save / torch.load into a
+    fresh optimizer over a fresh module holding the same weights: 3 steps,
+    save, load, 2 more steps equals 5 uninterrupted steps bitwise (weights,
+    moments, count), with a warmup so that the LR depends on ``count``. A
+    state of other groups is refused."""
+    import io
+
+    cfg = port_cfg(tiny_cfg(["SOLVER.OPTIMIZER", name, "SOLVER.BASE_LR", 1e-2,
+                             "SOLVER.WEIGHT_DECAY", 1e-2, "SOLVER.WARMUP_PROP", 0.5,
+                             "SOLVER.MAX_GRAD_NORM", 0.1]))
+    rng = np.random.RandomState(0)
+    arrays = {n: rng.randn(7 + i, 3).astype(np.float32) for i, n in enumerate(OPT_PARAMS)}
+    grads = [{n: np.random.RandomState(100 + s).randn(*a.shape).astype(np.float32)
+              for n, a in arrays.items()} for s in range(5)]
+
+    def run(model, opt, steps):  # copies: the clip scales the gradients in place
+        named = dict(model.named_parameters())
+        for s in steps:
+            opt.zero_grad()
+            for n, g in grads[s].items():
+                named[n].grad = torch.tensor(g)
+            opt.step()
+
+    def fresh():  # _named_module's parameters share the arrays' memory
+        return _named_module({n: a.copy() for n, a in arrays.items()})
+
+    whole = fresh()
+    whole_opt = make_optimizer(cfg, whole, num_training_steps=6)
+    run(whole, whole_opt, range(5))
+
+    first = fresh()
+    first_opt = make_optimizer(cfg, first, num_training_steps=6)
+    run(first, first_opt, range(3))
+    buf = io.BytesIO()
+    torch.save({"model": first.state_dict(), "optimizer": first_opt.state_dict()}, buf)
+    buf.seek(0)
+    saved = torch.load(buf, weights_only=True)
+    resumed = fresh()
+    resumed.load_state_dict(saved["model"])
+    resumed_opt = make_optimizer(cfg, resumed, num_training_steps=6)
+    resumed_opt.load_state_dict(saved["optimizer"])
+    assert resumed_opt.count == 3
+    run(resumed, resumed_opt, range(3, 5))
+
+    assert resumed_opt.count == whole_opt.count == 5
+    for (n, p), q in zip(whole.named_parameters(), resumed.parameters()):
+        assert torch.equal(p, q), n
+    a, b = whole_opt.state_dict()["core"]["state"], resumed_opt.state_dict()["core"]["state"]
+    assert a.keys() == b.keys()
+    for i in a:
+        for k in a[i]:
+            assert torch.equal(torch.as_tensor(a[i][k]), torch.as_tensor(b[i][k])), (i, k)
+    other = dict(saved["optimizer"], groups=["rest"])
+    with pytest.raises(ValueError, match="groups"):
+        resumed_opt.load_state_dict(other)

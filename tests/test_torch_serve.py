@@ -106,3 +106,49 @@ def test_micro_batcher_propagates_errors(predictors):
         bad = mb.submit(np.zeros((4, 8, 8), np.uint8), "not 4d")
         with pytest.raises(ValueError):
             bad.result(timeout=60)
+
+
+def test_predictor_loads_model_weight(predictors, tmp_path):
+    """MODEL.WEIGHT naming a training run's checkpoint directory serves the
+    EMA weights (the model's buffers beside them): the same answers, exactly,
+    as a predictor handed that state_dict. A reference-named .pth is refused
+    with the hash tokenizer unless ALLOW_HASH_TOKENIZER opts in, and then
+    serves its weights."""
+    import dataclasses
+
+    import torch
+
+    from stcat_tpu_torch.models import build_model
+    from stcat_tpu_torch.train.checkpoint import Checkpointer
+    from stcat_tpu_torch.train.optimizer import make_optimizer
+    from stcat_tpu_torch.train.step import create_train_state
+
+    _, port = predictors
+    cfg = port.cfg
+    model = build_model(cfg, device="cpu", seed=1)
+    state = create_train_state(cfg, model, make_optimizer(cfg, model, num_training_steps=4))
+    gen = torch.Generator().manual_seed(2)
+    for p in state.ema.values():
+        p.add_(torch.randn(p.shape, generator=gen) * 1e-2)
+    state.step = 3
+    Checkpointer(str(tmp_path / "run")).save(3, state, block=True)
+    served = {**model.state_dict(), **state.ema}
+
+    def with_weight(weight, **model_kw):
+        return dataclasses.replace(cfg, MODEL=dataclasses.replace(cfg.MODEL, WEIGHT=weight,
+                                                                  **model_kw))
+
+    clip = _clip(seed=6)
+    want = GroundingPredictor(cfg, state_dict=served, max_batch=2, device="cpu").predict(
+        clip, "a person waves at the camera")
+    got = GroundingPredictor(with_weight(str(tmp_path / "run")), max_batch=2,
+                             device="cpu").predict(clip, "a person waves at the camera")
+    assert got == want
+
+    torch.save(model.state_dict(), str(tmp_path / "w.pth"))
+    with pytest.raises(RuntimeError, match="HASH tokenizer"):
+        GroundingPredictor(with_weight(str(tmp_path / "w.pth")), device="cpu")
+    text = dataclasses.replace(cfg.MODEL.TEXT_MODEL, ALLOW_HASH_TOKENIZER=True)
+    pth = GroundingPredictor(with_weight(str(tmp_path / "w.pth"), TEXT_MODEL=text), device="cpu")
+    for k, v in pth.model.state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k

@@ -12,6 +12,7 @@ each comparison.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,15 @@ from stcat_tpu_torch.train.optimizer import label_params, make_optimizer
 from stcat_tpu_torch.train.step import create_train_state, make_train_step
 
 T = torch.from_numpy
+
+# Under pytest-xdist the workers share the machine's cores: each worker's
+# torch gets its share, or the workers' OpenMP pools oversubscribe the cores
+# and every test of the run slows down (every worker imports this module
+# when it collects, so this holds for all of them).
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
 NO_DROPOUT = ["MODEL.STCAT.DROPOUT", 0.0, "MODEL.STCAT.HEAD_DROPOUT", 0.0,
               "MODEL.TEXT_MODEL.DROPOUT", 0.0]
 SLICE = ["MODEL.VISION_BACKBONE.DEPTHS", "[1,2,1,1]", "MODEL.STCAT.ENC_LAYERS", 1,
@@ -182,7 +192,7 @@ def test_two_train_steps_match_jax_step(tiny_slice):
     state = create_train_state(cfg, model, opt)
     step = make_train_step(cfg, model, opt, device="cpu")
     batch, targets = port_batch(arrays)
-    losses = [step(state, batch, targets, torch.Generator().manual_seed(7))["loss"]
+    losses = [step(state, batch, targets, torch.Generator().manual_seed(7))["loss"].item()
               for _ in range(2)]
     assert state.step == 2 and opt.count == 2
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
@@ -241,7 +251,9 @@ def test_grad_accum_two_equals_one_on_a_raw_batch():
         state = create_train_state(cfg, model, opt)
         raw, targets = _raw_batch(cfg)
         metrics = make_train_step(cfg, model, opt, device="cpu")(state, raw, targets, None)
-        runs.append((metrics, {n: p.grad for n, p in model.named_parameters()}))
+        assert all(v.dim() == 0 and not v.requires_grad for v in metrics.values())
+        runs.append(({k: v.item() for k, v in metrics.items()},
+                     {n: p.grad for n, p in model.named_parameters()}))
     (m1, g1), (m2, g2) = runs
     assert set(m1) == set(m2) and "loss" in m1
     for k in m1:
