@@ -40,7 +40,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
      under torch.profiler, its device time broken down by kernel (K1, K2,
      K3 forward, the K3 recompute in the backward, the rest) against the
      step's wall time; a kernel whose counter moved but whose device name
-     shows no time fails the run.
+     shows no time fails the run. Before the traced step, one step runs under
+     torch.cuda.set_sync_debug_mode("error"): a host wait on the card inside
+     the step fails the run; its time prints beside the hand-fed steps.
   5. the training loop: the same recipe through train.loop.train, the
      port's training entry point, on the synthetic dataset (8 train and 4
      test items of 128 frames at 320x240): loader, host-to-device prefetch,
@@ -48,10 +50,25 @@ Phases (any failure exits non-zero; no phase's error is caught):
      then a second train() that resumes at 4 and takes step 5. K1 = K2 = 24
      and K3 = 30 launches per training microbatch, K2 none in validation;
      the step-4 checkpoint restores bitwise into a fresh model and
-     optimizer; it prints each iteration's step and data time, validation
-     seconds per batch, checkpoint bytes and seconds, and peak memory.
+     optimizer, and that model runs do_eval under the sync check up to its
+     first drain (the device-to-host read the JAX engine has too); it
+     prints each iteration's step and data time, validation seconds per
+     batch, checkpoint bytes and seconds, and peak memory.
+  6. the other entry points at full width, in-process through each CLI's
+     main(argv) on the loop phase's dataset: cli.convert of a
+     reference-named .pth of the seeded model, cli.test --synthetic of the
+     converted directory (metrics in [0, 1], K1 and K3 launched, K2 not;
+     seconds per stacked batch), cli.infer on 128 rendered 320x240 JPEG
+     frames with --draw, cli.serve over HTTP (/healthz, three concurrent
+     POSTs of 128, 128 and 1 frames, a bad body answering 400; latency per
+     request), cli.precompile --list and then one train and one eval
+     signature (seconds and peak memory each; K2 launched by the train
+     one), and cli.repro --synthetic's report;
+  7. MODEL.USE_LSTM true, full width otherwise: one served batch and one
+     train step (K1 = K2 = 24, K3 = 30 per microbatch).
 Every phase prints its seconds. The line before the last is a JSON object
-listing every kernel's numbers; the last line is the device record.
+listing every kernel's numbers, with its launches on each phase's path; the
+last line is the device record.
 """
 
 from __future__ import annotations
@@ -433,10 +450,14 @@ def plain_kernels():
         kattn._launch, kattn._launch_bwd, kbottle._launch = saved
 
 
+RECIPE = os.path.join(ROOT, "experiments/VidSTG/e2e_STCAT_R101_VidSTG.yaml")
+# the device of the CLI and LSTM phases (a rehearsal on the CPU sets "cpu")
+DEVICE = "cuda"
+
+
 def recipe_cfg(*opts):
     """The VidSTG R101 recipe at full width, fresh weights, every kernel route on."""
-    cfg = merge_from_file(default_config(),
-                          os.path.join(ROOT, "experiments/VidSTG/e2e_STCAT_R101_VidSTG.yaml"))
+    cfg = merge_from_file(default_config(), RECIPE)
     return merge_from_list(cfg, [
         "MODEL.WEIGHT", "", "TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]",
         "TPU.FRAME_BUCKETS", "[64]", *opts,
@@ -776,8 +797,41 @@ def train_phase():
     print(f"  frozen stem + layer1: {len(frozen)} parameters bitwise unchanged")
     del before
 
+    sync_free_step(step, state, raw, targets, gen, step_s[1:])
     profile_step(step, state, raw, targets, gen)
     return launches
+
+
+@contextlib.contextmanager
+def no_host_waits():
+    """torch.cuda.set_sync_debug_mode("error"): any host wait on the card
+    inside the block (a stream or device synchronize, a blocking copy, an
+    .item()) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_free_step(step, state, raw, targets, gen, hand_fed) -> None:
+    """One more train step with every host wait an error: the host enqueues
+    the whole step (both microbatches, the clip, AdamW, the EMA) without
+    waiting for the card, as the JAX step's one jitted program does; then
+    the losses are read. Prints the enqueue and the whole step's time beside
+    the hand-fed steps (which read their losses at once too)."""
+    torch.cuda.synchronize()
+    t = time.time()
+    with no_host_waits():
+        losses = step(state, raw, targets, gen)
+    enqueued = time.time() - t
+    loss = losses["loss"].item()
+    done = time.time() - t
+    if not np.isfinite(loss):
+        raise AssertionError(f"sync-free step: loss {loss}")
+    print(f"  step under set_sync_debug_mode('error') ran without a host wait: enqueued in "
+          f"{enqueued:.3f} s, losses read after {done:.3f} s (hand-fed steps "
+          + ", ".join(f"{x:.3f}" for x in hand_fed) + " s)")
 
 
 def _flat_state(state) -> dict:
@@ -790,12 +844,22 @@ def _flat_state(state) -> dict:
     return out
 
 
-def loop_phase():
+def loop_cfg(tmp, *opts):
+    """The loop phase's recipe over its synthetic dataset in ``tmp``."""
+    return recipe_cfg("MODEL.STCAT.DROPOUT", "0.0", "TPU.GRAD_ACCUM", str(ACCUM),
+                      "SOLVER.BATCH_SIZE", "2", "SOLVER.WARMUP_PROP", "0.0",
+                      "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.VAL_PERIOD", "2",
+                      "TPU.FRAME_BUCKETS", "[64,128]", "TENSORBOARD_DIR", "",
+                      "DATA_DIR", os.path.join(tmp, "data"), "OUTPUT_DIR",
+                      os.path.join(tmp, "out"), *opts)
+
+
+def loop_phase(tmp):
     """The training entry point at full width: train.loop.train on the
     synthetic dataset (8 train and 4 test items of 128 frames at 320x240,
-    frames rendered), GRAD_ACCUM 2 of 2-clip batches, STCAT.DROPOUT 0,
-    checkpoints every 2 iterations, EMA validation every 2; 4 iterations,
-    then a second call resumes to 5. LOG_PERIOD is 1 here, so every
+    frames rendered, written into ``tmp``), GRAD_ACCUM 2 of 2-clip batches,
+    STCAT.DROPOUT 0, checkpoints every 2 iterations, EMA validation every 2;
+    4 iterations, then a second call resumes to 5. LOG_PERIOD is 1 here, so every
     iteration writes its step and data time to metrics.jsonl. Launches are
     split between training and validation by wrapping run_validation;
     checkpoint stats are read from the Checkpointer the loop builds."""
@@ -804,7 +868,6 @@ def loop_phase():
     from stcat_tpu_torch.train import checkpoint as ckpt_mod
     from stcat_tpu_torch.train import loop
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     saved = loop.LOG_PERIOD, loop.run_validation, loop.Checkpointer
     val_launches, val_stats, ckpt_stats = [], [], []
 
@@ -829,11 +892,7 @@ def loop_phase():
         for split, n in (("train", 8), ("test", 4)):
             write_synthetic_cache(data, "VidSTG", split, n_items=n, n_frames=128, width=320,
                                   height=240, seed=0)
-        cfg = recipe_cfg("MODEL.STCAT.DROPOUT", "0.0", "TPU.GRAD_ACCUM", str(ACCUM),
-                         "SOLVER.BATCH_SIZE", "2", "SOLVER.WARMUP_PROP", "0.0",
-                         "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.VAL_PERIOD", "2",
-                         "TPU.FRAME_BUCKETS", "[64,128]", "TENSORBOARD_DIR", "",
-                         "DATA_DIR", data, "OUTPUT_DIR", out)
+        cfg = loop_cfg(tmp)
         logger = setup_logger("chip_smoke_loop", out)
         loop.LOG_PERIOD, loop.run_validation, loop.Checkpointer = 1, run_validation, \
             RecordingCheckpointer
@@ -891,7 +950,9 @@ def loop_phase():
         print(f"  restore of step 4 into a fresh model and optimizer: {len(a)} tensors "
               f"(parameters, buffers, EMA, AdamW moments, count) bitwise equal, "
               f"{restore_s:.2f} s")
-        del a, b, fresh, fresh_model, state
+        del a, b, fresh, state
+        eval_without_host_waits(cfg, fresh_model)
+        del fresh_model
         torch.cuda.empty_cache()
 
         for counter in (kattn.LAUNCHES, kattn.BWD_LAUNCHES, kbottle.LAUNCHES):
@@ -937,7 +998,303 @@ def loop_phase():
         return launches
     finally:
         loop.LOG_PERIOD, loop.run_validation, loop.Checkpointer = saved
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def eval_without_host_waits(cfg, model) -> None:
+    """do_eval over the test split with every host wait an error up to its
+    first drain, whose device-to-host read (eval.engine.to_host, the JAX
+    engine's device_get) is let through; the pass then ends as usual."""
+    from stcat_tpu_torch.data.loader import make_loader
+    from stcat_tpu_torch.data.synthetic import SyntheticDataset
+    from stcat_tpu_torch.eval import engine
+    from stcat_tpu_torch.eval.evaluator import build_evaluator
+
+    real, first_drain = engine.to_host, []
+
+    def to_host(tensors):
+        if torch.cuda.get_sync_debug_mode() != 0:
+            first_drain.append(time.time())
+            torch.cuda.set_sync_debug_mode("default")
+        return real(tensors)
+
+    loader = make_loader(cfg, SyntheticDataset(cfg, "test"), "test")
+    engine.to_host = to_host
+    try:
+        t = time.time()
+        with no_host_waits():
+            res = engine.do_eval(cfg, model, loader, build_evaluator(cfg, None, "test"))
+    finally:
+        engine.to_host = real
+    if len(first_drain) != 1 or not all(0.0 <= v <= 1.0 for v in res.values()):
+        raise AssertionError(f"do_eval: {len(first_drain)} drains under the sync check, "
+                             f"metrics {res}")
+    print(f"  do_eval under set_sync_debug_mode('error') queued {loader.iters_per_epoch} stacked "
+          f"batches without a host wait; first drain {first_drain[0] - t:.3f} s after the "
+          f"start, pass {time.time() - t:.3f} s")
+
+
+def _launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _check_tube(res: dict, frame_ids, label: str) -> None:
+    """A box for every frame id, finite, and 0 <= start < end <= T."""
+    if sorted(int(f) for f in res["boxes"]) != sorted(frame_ids):
+        raise AssertionError(f"{label}: a frame id is missing a box")
+    boxes = np.asarray(list(res["boxes"].values()), np.float64)
+    s, e = res["span"]
+    if not np.isfinite(boxes).all() or not 0 <= s < e <= len(frame_ids):
+        raise AssertionError(f"{label}: span {res['span']}, finite {np.isfinite(boxes).all()}")
+
+
+def _post(port: int, body: bytes, path: str = "/predict"):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        conn.request("POST", path, body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def cli_phase(tmp):
+    """The port's other entry points at full width, in-process through each
+    main(argv), on the loop phase's synthetic dataset: convert a
+    reference-named .pth of the seeded model, evaluate the converted
+    directory (cli.test), ground a 128-frame JPEG clip (cli.infer --draw),
+    serve HTTP requests (cli.serve), list and run the recipe's batch shapes
+    (cli.precompile) and print the reproduction report (cli.repro). The
+    converted weights are reference-derived and the repository has no
+    roberta vocabulary, so the hash tokenizer is allowed explicitly."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from stcat_tpu_torch.cli import convert, infer, load_config, precompile, repro, serve
+    from stcat_tpu_torch.cli import test as cli_test
+    from stcat_tpu_torch.data.synthetic import render_frames
+    from stcat_tpu_torch.eval import engine
+
+    data = os.path.join(tmp, "data")
+    conv = os.path.join(tmp, "converted")
+    # recipe_cfg's overrides and the loop phase's, every output under tmp
+    opts = ["TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]",
+            "TPU.FRAME_BUCKETS", "[64,128]", "SOLVER.BATCH_SIZE", "2", "TPU.GRAD_ACCUM",
+            str(ACCUM), "MODEL.STCAT.DROPOUT", "0.0", "TENSORBOARD_DIR", "", "DATA_DIR", data,
+            "OUTPUT_DIR", os.path.join(tmp, "cli_out"), "MODEL.TEXT_MODEL.ALLOW_HASH_TOKENIZER",
+            "true"]
+    base = ["--config-file", RECIPE, "--device", DEVICE]
+    cfg = loop_cfg(tmp)
+    for counter in KERNEL_COUNTERS.values():
+        counter.reset()
+
+    src = os.path.join(tmp, "reference.pth")
+    t = time.time()
+    torch.save({"model": build_model(cfg, DEVICE, seed=0).state_dict()}, src)
+    saved_s = time.time() - t
+    t = time.time()
+    convert.main(["--src", src, "--out", conv] + base + opts)
+    print(f"  cli.convert: {os.path.getsize(src)} byte reference .pth (saved in {saved_s:.1f} s) "
+          f"-> {sorted(os.listdir(os.path.join(conv, 'checkpoints')))} in {time.time() - t:.1f} s")
+    os.remove(src)
+    with_conv = opts + ["MODEL.WEIGHT", conv]
+
+    real_eval, eval_s = engine.do_eval, []
+
+    def timed_eval(*args, **kwargs):
+        t0 = time.time()
+        out = real_eval(*args, **kwargs)
+        eval_s.append(time.time() - t0)
+        return out
+
+    before, t = _counts(), time.time()
+    engine.do_eval = timed_eval
+    try:
+        res = cli_test.main(base + ["--synthetic"] + with_conv
+                            + ["OUTPUT_DIR", os.path.join(tmp, "test_out")])
+    finally:
+        engine.do_eval = real_eval
+    test_s, launched = time.time() - t, _launched(before)
+    batches = 2  # 4 test items, 2 clips per stacked batch
+    bad = {k: v for k, v in res.items() if not 0.0 <= v <= 1.0}
+    if bad or not os.path.exists(os.path.join(tmp, "test_out", "test_results.json")):
+        raise AssertionError(f"cli.test: metrics outside [0, 1] {bad}, or no test_results.json")
+    if launched["flash_attention_bwd"] != 0 \
+            or launched["flash_attention"] != K1_PER_MICROBATCH * batches \
+            or launched["fused_bottleneck"] != K3_PER_MICROBATCH * batches:
+        raise AssertionError(f"cli.test launches {launched}")
+    print(f"  cli.test --synthetic on the converted directory: {test_s:.1f} s from argv to the "
+          f"metrics, do_eval {eval_s[0]:.3f} s for {batches} stacked batches of 4 lanes x 64 "
+          f"frames ({eval_s[0] / batches:.3f} s per batch, JPEG decode included); "
+          f"launches {launched}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k.endswith(("tiou", "_viou"))))
+
+    clip_dir, draw = os.path.join(tmp, "clip"), os.path.join(tmp, "draw")
+    os.makedirs(clip_dir)
+    item = {"height": 240, "width": 320, "gt_temp_bound": [30, 90], "vid": "clip",
+            "bboxs": [[40 + k, 60, 140 + k, 180] for k in range(61)]}
+    frames = render_frames(item, range(128))
+    for fid, img in enumerate(frames):
+        Image.fromarray(img).save(os.path.join(clip_dir, f"img_{fid:05d}.jpg"), quality=90)
+    before, t = _counts(), time.time()
+    tube = infer.main(base + ["--frames", clip_dir, "--query", "a white box moves right",
+                              "--weights", conv, "--out", os.path.join(tmp, "tube.json"),
+                              "--draw", draw] + opts)
+    infer_s, launched = time.time() - t, _launched(before)
+    _check_tube(tube, list(range(128)), "cli.infer")
+    s_, e_ = tube["span"]
+    if len(os.listdir(draw)) != e_ - s_ or launched["flash_attention_bwd"] != 0 \
+            or launched["flash_attention"] <= 0 or launched["fused_bottleneck"] <= 0:
+        raise AssertionError(f"cli.infer: {len(os.listdir(draw))} drawn frames for span "
+                             f"{tube['span']}, launches {launched}")
+    print(f"  cli.infer: 128 JPEG frames 320x240 -> span {tube['span']}, {len(tube['boxes'])} "
+          f"boxes, {e_ - s_} frames drawn; {infer_s:.1f} s from argv to the tube (predictor "
+          f"build, weights and frame decode included); launches {launched}")
+
+    before, t = _counts(), time.time()
+    server, batcher = serve.build_server(load_config(RECIPE, with_conv), "127.0.0.1", 0,
+                                         max_batch=2, max_wait_ms=50.0, device=DEVICE)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    built_s = time.time() - t
+    try:
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        health = json.loads(resp.read())
+        conn.close()
+        if resp.status != 200 or health["status"] != "ok":
+            raise AssertionError(f"/healthz: {resp.status} {health}")
+        rng = np.random.RandomState(0)
+        reqs = [(rng.randint(0, 256, (t_, 240, 320, 3), dtype=np.uint8), text)
+                for t_, text in ((128, "the man in a red shirt walks left"),
+                                 (128, "a dog jumps over the fence"), (1, "a child holds a ball"))]
+        bodies = []
+        for frames_, text in reqs:
+            buf = io.BytesIO()
+            np.savez(buf, frames=frames_, text=np.array(text))
+            bodies.append(buf.getvalue())
+        latencies, answers = [0.0] * 3, [None] * 3
+
+        def post(i):
+            t0 = time.time()
+            answers[i] = _post(port, bodies[i])
+            latencies[i] = time.time() - t0
+
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(3)]
+        for th in posts:
+            th.start()
+        for th in posts:
+            th.join(timeout=900)
+        for (frames_, _), (code, body) in zip(reqs, answers):
+            if code != 200:
+                raise AssertionError(f"/predict: {code} {body}")
+            _check_tube(body, list(range(frames_.shape[0])), "cli.serve")
+        code, body = _post(port, b"not an npz archive")
+        if code != 400:
+            raise AssertionError(f"a bad body answered {code}, not 400: {body}")
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    launched = _launched(before)
+    if launched["flash_attention_bwd"] != 0 or launched["flash_attention"] <= 0:
+        raise AssertionError(f"cli.serve launches {launched}")
+    print(f"  cli.serve: server built and warmed up in {built_s:.1f} s; /healthz ok; 3 "
+          f"concurrent POST /predict (128, 128 and 1 frames of 320x240, 29.5 MB npz bodies) "
+          f"answered 200 after " + ", ".join(f"{x:.3f}" for x in latencies)
+          + " s; a bad body answered 400; launches " + str(launched))
+
+    pre = base + ["--synthetic", "--epochs", "1"]
+    t = time.time()
+    precompile.main(pre + ["--list"] + opts)
+    list_s = time.time() - t
+    before = _counts()
+    records = precompile.main(pre + opts + ["DATA_TRUNK", "2"])
+    launched = _launched(before)
+    if [r["mode"] for r in records] != ["train", "eval"] \
+            or launched["flash_attention_bwd"] != K1_PER_MICROBATCH * ACCUM:
+        raise AssertionError(f"cli.precompile: {records}, launches {launched} (K2 expected "
+                             f"{K1_PER_MICROBATCH * ACCUM} on the train signature)")
+    print(f"  cli.precompile --list in {list_s:.1f} s; then DATA_TRUNK 2, one signature per mode "
+          f"(launches {launched}):")
+    for r in records:
+        print(f"    {r['mode']} {r['signature']}: {r['seconds']:.3f} s, peak {r['peak_gb']} GiB")
+
+    t = time.time()
+    report = repro.main(["--weights", conv, "--data-dir", data, "--synthetic"] + base + opts
+                        + ["OUTPUT_DIR", os.path.join(tmp, "repro_out")])
+    where = (cfg.DATASET.NAME, int(cfg.INPUT.RESOLUTION))
+    keys = {"dataset", "resolution", "weights", "metrics", "targets", "deltas"}
+    if not keys <= set(report) or (report["dataset"], report["resolution"]) != where \
+            or report["targets"] != repro.MODEL_ZOO.get(where, {}) \
+            or set(report["deltas"]) != set(report["targets"]):
+        raise AssertionError(f"cli.repro report: {report}")
+    print(f"  cli.repro --synthetic: report {sorted(report)} for {where[0]}@{where[1]}, deltas "
+          f"{report['deltas']} (random weights) in {time.time() - t:.1f} s")
+    return _counts()
+
+
+def lstm_phase():
+    """MODEL.USE_LSTM true (GloVe-sized embedding, 2 bi-LSTM layers of 256
+    per direction) at full width otherwise: one served batch through
+    GroundingPredictor (K1 and K3 launched, finite outputs) and one train
+    step with the kernels (K1 = K2 = 24, K3 = 30 per microbatch at
+    STCAT.DROPOUT 0, GRAD_ACCUM 2), its LSTM weights moved."""
+    cfg = recipe_cfg("MODEL.USE_LSTM", "true", "MODEL.STCAT.DROPOUT", "0.0",
+                     "TPU.GRAD_ACCUM", str(ACCUM), "SOLVER.WARMUP_PROP", "0.0")
+    for counter in KERNEL_COUNTERS.values():
+        counter.reset()
+    pred = GroundingPredictor(cfg, max_batch=2, device=DEVICE, seed=0)
+    rng = np.random.RandomState(2)
+    reqs = [(rng.randint(0, 256, (128, 240, 320, 3), dtype=np.uint8), text, None)
+            for text in ("the man in a red shirt walks left", "a dog jumps over the fence")]
+    t = time.time()
+    results = pred.predict_batch(reqs)
+    served_s = time.time() - t
+    for (frames, _, _), res in zip(reqs, results):
+        _check_tube(res, list(range(frames.shape[0])), "USE_LSTM serving")
+    served = _counts()
+    if served["flash_attention"] <= 0 or served["fused_bottleneck"] <= 0 \
+            or served["flash_attention_bwd"] != 0:
+        raise AssertionError(f"USE_LSTM serving launches {served}")
+    print(f"  served one batch (2 requests of 128 frames) in {served_s:.3f} s, first call; "
+          f"spans {[r['span'] for r in results]}; launches {served}")
+    del pred
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, DEVICE, seed=0)
+    opt = make_optimizer(cfg, model, num_training_steps=1000)
+    state = create_train_state(cfg, model, opt)
+    step = make_train_step(cfg, model, opt, device=DEVICE)
+    raw, targets = _train_batch(cfg)
+    lstm = {n: p.detach().clone() for n, p in model.named_parameters()
+            if n.startswith("text_encoder.")}
+    before = _counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    loss = step(state, raw, targets, torch.Generator(device=DEVICE).manual_seed(0))["loss"].item()
+    step_s = time.time() - t
+    launched = _launched(before)
+    want = {"flash_attention": K1_PER_MICROBATCH * ACCUM,
+            "flash_attention_bwd": K1_PER_MICROBATCH * ACCUM,
+            "fused_bottleneck": K3_PER_MICROBATCH * ACCUM}
+    named = dict(model.named_parameters())
+    still = [n for n, p in lstm.items() if torch.equal(named[n].detach(), p)]
+    if launched != want or not np.isfinite(loss) or still:
+        raise AssertionError(f"USE_LSTM step: launches {launched} (expected {want}), loss "
+                             f"{loss}, LSTM weights not moved {still[:3]}")
+    print(f"  train step (GRAD_ACCUM {ACCUM}, 2 clips x {TRAIN_FRAMES} frames): loss {loss:.5f}, "
+          f"{step_s:.3f} s (first step), {len(lstm)} text-encoder tensors moved; launches "
+          f"{launched}")
+    return _counts()
 
 
 def main() -> int:
@@ -998,10 +1355,27 @@ def main() -> int:
     print(f"training phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
 
-    print("the training loop at full width:")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        print("the training loop at full width:")
+        t0 = time.time()
+        looped = loop_phase(tmp)
+        print(f"loop phase took {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        print("the other entry points at full width (cli.convert, test, infer, serve, "
+              "precompile, repro):")
+        t0 = time.time()
+        clis = cli_phase(tmp)
+        print(f"CLI phase took {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    print("MODEL.USE_LSTM at full width:")
     t0 = time.time()
-    looped = loop_phase()
-    print(f"loop phase took {time.time() - t0:.1f} s")
+    lstm = lstm_phase()
+    print(f"LSTM phase took {time.time() - t0:.1f} s")
 
     per_fwd = ("bf16 CUDA-event times summed over one served forward's calls at the serving "
                "path's shapes (4 lanes x 64 frames)")
@@ -1018,7 +1392,8 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces, basis) in meta.items():
         t = totals[name]
-        by_path = {"serving": served[name], "training": trained[name], "loop": looped[name]}
+        by_path = {"serving": served[name], "training": trained[name], "loop": looped[name],
+                   "cli": clis[name], "lstm": lstm[name]}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -11,6 +11,7 @@ port's ``state_dict`` (reference STCAT names):
     running_mean = 0, running_var = 1 - eps (so weight * rsqrt(var + eps)
     gives back the scale)
   * q/k/v projections of an attention -> packed ``in_proj_weight`` / ``in_proj_bias``
+  * flax LSTM cells (MODEL.USE_LSTM)  -> ``torch.nn.LSTM`` weights (``lstm_text``)
 
 It is the inverse of ``stcat_tpu/train/convert_reference.py``'s
 ``convert_reference_stcat`` on everything that function does not fold.
@@ -114,6 +115,32 @@ def roberta(w: Writer, node: Dict, pre: str = "") -> None:
     w.dense(pre + "pooler.dense", node["pooler"])
 
 
+def lstm_text(w: Writer, node: Dict, pre: str = "") -> None:
+    """LSTMTextEncoder tree -> one torch.nn.LSTM per direction and layer.
+    flax names the cells OptimizedLSTMCell_<k> in creation order: layer by
+    layer, forward then backward (bidirectional when the projection takes
+    twice a cell's width). Each cell's per-gate kernels, in flax's order i, f,
+    g, o (torch's too), stack into weight_ih_l0 [4h, in] and weight_hh_l0
+    [4h, h]; the hidden biases are bias_hh_l0, and bias_ih_l0 is 0 (flax
+    keeps one bias per gate)."""
+    w.put(pre + "embedding.weight", node["embedding"]["embedding"])
+    cells = sorted((k for k in node if k.startswith("OptimizedLSTMCell_")),
+                   key=lambda k: int(k.rsplit("_", 1)[1]))
+    hidden = _np(node[cells[0]]["hi"]["kernel"]).shape[0]
+    bidirectional = _np(node["proj"]["kernel"]).shape[0] == 2 * hidden
+    for k, name in enumerate(cells):
+        cell = node[name]
+        dst = (f"{pre}{('fwd', 'bwd')[k % 2]}_{k // 2}" if bidirectional else f"{pre}fwd_{k}")
+        w.put(dst + ".weight_ih_l0", np.concatenate([_np(cell["i" + g]["kernel"]).T
+                                                     for g in "ifgo"]))
+        w.put(dst + ".weight_hh_l0", np.concatenate([_np(cell["h" + g]["kernel"]).T
+                                                     for g in "ifgo"]))
+        bias = np.concatenate([_np(cell["h" + g]["bias"]) for g in "ifgo"])
+        w.put(dst + ".bias_ih_l0", np.zeros_like(bias))
+        w.put(dst + ".bias_hh_l0", bias)
+    w.dense(pre + "proj", node["proj"])
+
+
 def encoder(w: Writer, enc: Dict, pre: str = "") -> None:
     """CrossModalEncoder tree -> reference names."""
     for i in range(sum(k.startswith("spatial_") for k in enc)):
@@ -169,10 +196,13 @@ def from_jax_variables(params: Dict, constants: Dict) -> Dict[str, torch.Tensor]
     w.put("input_proj.weight", kernel.T[:, :, None, None])
     w.put("input_proj.bias", params["input_proj"]["bias"])
 
-    roberta(w, params["text_encoder"]["roberta"], "text_encoder.body.")
-    resizer = params["text_encoder"]["resizer"]
-    w.dense("text_encoder.resizer.fc", resizer["fc"])
-    w.norm("text_encoder.resizer.layer_norm", resizer["ln"])
+    text = params["text_encoder"]
+    if "roberta" in text:
+        roberta(w, text["roberta"], "text_encoder.body.")
+        w.dense("text_encoder.resizer.fc", text["resizer"]["fc"])
+        w.norm("text_encoder.resizer.layer_norm", text["resizer"]["ln"])
+    else:  # MODEL.USE_LSTM
+        lstm_text(w, text, "text_encoder.")
 
     encoder(w, params["ground_encoder"], "ground_encoder.encoder.")
 

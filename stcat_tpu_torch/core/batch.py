@@ -111,12 +111,16 @@ def device_split_streams(batch):
 
 
 def to_device(batch, device: torch.device):
-    """Copy every array field of a batch container to ``device`` as a tensor."""
-    upd = {}
-    for f in dataclasses.fields(batch):
-        v = getattr(batch, f.name)
+    """Copy every array field of a batch container (or one bare array) to
+    ``device`` as a tensor. The copies are ``non_blocking``: from pageable
+    host memory the host does not wait for the card."""
+    def put(v):
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(np.ascontiguousarray(v))
-        if isinstance(v, torch.Tensor):
-            upd[f.name] = v.to(device, non_blocking=True)
-    return dataclasses.replace(batch, **upd)
+        return v.to(device, non_blocking=True)
+
+    if isinstance(batch, (np.ndarray, torch.Tensor)):
+        return put(batch)
+    return dataclasses.replace(batch, **{
+        f.name: put(getattr(batch, f.name)) for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), (np.ndarray, torch.Tensor))})

@@ -84,9 +84,12 @@ def _tensor(v) -> torch.Tensor:
 
 
 def _map_arrays(item, fn):
-    """``fn`` over every array field of each batch container in a tuple item
-    (other elements, such as meta lists, pass through)."""
+    """``fn`` over every bare array of a tuple item and every array field of
+    each batch container in it (other elements, such as meta lists, pass
+    through)."""
     def one(x):
+        if isinstance(x, (np.ndarray, torch.Tensor)):
+            return fn(_tensor(x))
         if not dataclasses.is_dataclass(x):
             return x
         upd = {f.name: fn(_tensor(getattr(x, f.name))) for f in dataclasses.fields(x)
@@ -96,8 +99,9 @@ def _map_arrays(item, fn):
 
 
 def _tensors(item) -> List[torch.Tensor]:
-    return [getattr(x, f.name) for x in item if dataclasses.is_dataclass(x)
-            for f in dataclasses.fields(x) if isinstance(getattr(x, f.name), torch.Tensor)]
+    return [x for x in item if isinstance(x, torch.Tensor)] + [
+        getattr(x, f.name) for x in item if dataclasses.is_dataclass(x)
+        for f in dataclasses.fields(x) if isinstance(getattr(x, f.name), torch.Tensor)]
 
 
 class HostToDevice:

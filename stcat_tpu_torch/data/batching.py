@@ -39,6 +39,15 @@ def raw_canvases(samples: List[Dict]) -> Tuple[Tuple[int, int], Tuple[int, int]]
             (round_up(ho, CANVAS_QUANT), round_up(wo, CANVAS_QUANT)))
 
 
+def raw_batch_signature(samples: List[Dict], buckets: Sequence[int]) -> tuple:
+    """(B, frame bucket, source canvas, output canvas, layout) of the batch
+    build_raw_batch would assemble from these samples: batches with equal
+    signatures have equal shapes."""
+    t_bucket = pick_bucket(max(len(s["actioness"]) for s in samples), buckets)
+    src_canvas, out_canvas = raw_canvases(samples)
+    return (len(samples), t_bucket, src_canvas, out_canvas, "rgb")
+
+
 def _build_targets(samples: List[Dict], t_bucket: int):
     """(VideoTargets of numpy arrays, frame_valid [B, T], meta list).
 

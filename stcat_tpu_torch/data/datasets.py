@@ -66,15 +66,26 @@ class GroundingDataset:
         return decode_frames(self.video_path(item), item["frame_ids"], item["height"],
                              item["width"])
 
-    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None) -> Dict:
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None,
+                    plan_only: bool = False) -> Dict:
+        """``plan_only``: zero-filled frames of the decode shape instead of
+        decoded ones. The rng stream is the same (the plan draws before
+        decode, and decode draws nothing), so the sample's shapes, plan and
+        targets are those of the real one: ``Loader.scan_signatures`` lists a
+        recipe's batch shapes from such samples without decoding a pixel."""
         rng = rng or np.random.default_rng()
         item = self.sample_clip(deepcopy(self.items[index]), rng)
         boxes = gt_box_alignment(item)  # [Nspan, 4] xyxy pixels
         # the plan draws before decode; decode consumes no randomness
         plan, boxes_out, text = self.transforms.plan(
             (item["height"], item["width"]), boxes, item["description"].lower(), rng)
+        if plan_only:
+            frames = np.zeros((len(item["frame_ids"]), item["height"], item["width"], 3),
+                              np.uint8)
+        else:
+            frames = self.load_frames(item)
         return {
-            "frames_u8": self.load_frames(item),
+            "frames_u8": frames,
             "plan": plan,
             "boxes": boxes_out,
             "boxes_cxcywh": boxes_to_normalized_cxcywh(boxes_out, plan.out_hw),

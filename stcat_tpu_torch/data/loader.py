@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import math
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from ..core.dist import get_rank, get_world_size
-from .batching import build_raw_batch, pick_bucket
+from .batching import build_raw_batch, pick_bucket, raw_batch_signature
 from .datasets import check_raw_ingest
 from .tokenize import build_tokenizer
 
@@ -98,9 +98,48 @@ class Loader:
         self._epoch_cache = (epoch, shard, shard_pad)
         return shard, shard_pad
 
-    def _load_sample(self, index: int, it: int):
+    def _load_sample(self, index: int, it: int, plan_only: bool = False):
         rng = np.random.default_rng((self.seed * 1_000_003 + it) % (2**31) + int(index))
+        if plan_only:
+            return self.dataset.__getitem__(int(index), rng=rng, plan_only=True)
         return self.dataset.__getitem__(int(index), rng=rng)
+
+    def _eval_samples(self, rows, rpad, load):
+        """An eval batch's samples from load(row), a sample or the Future of
+        one: wrap-around rows reuse the batch's first real sample, marked
+        ``pad``; a batch of wrap-around rows only loads its first row, to
+        fill the shapes."""
+        real = [(j, load(r)) for j, r in enumerate(rows) if not rpad[j]]
+        if not real:
+            real = [(0, load(rows[0]))]
+            rpad = np.ones_like(rpad)
+        got = {j: s.result() if isinstance(s, Future) else s for j, s in real}
+        filler = {**got[real[0][0]], "pad": True}
+        return [got[j] if (j in got and not rpad[j]) else filler for j in range(len(rows))]
+
+    def scan_signatures(self, epochs: int = 1) -> Dict[tuple, list]:
+        """{signature: exemplar samples} of every batch shape this loader
+        emits (``batching.raw_batch_signature``), found without decoding a
+        pixel: the iterator's epoch indices and per-(iteration, index)
+        generators replayed through plan-only samples. ``_make_batch`` of an
+        exemplar builds a batch of that shape. Train scans ``epochs`` epochs
+        (the augmentation draws differ per epoch); eval is one pass, its
+        wrap-around rows filled as the iterator fills them."""
+        sigs: Dict[tuple, list] = {}
+        for epoch in range(epochs if self.is_train else 1):
+            indices, pad = self._epoch_indices(epoch)
+            for within in range(self.iters_per_epoch):
+                it = epoch * self.iters_per_epoch + within
+                sl = slice(within * self.global_batch, (within + 1) * self.global_batch)
+                if self.is_train:
+                    samples = [self._load_sample(r, it, plan_only=True) for r in indices[sl]]
+                else:
+                    samples = self._eval_samples(
+                        indices[sl], pad[sl],
+                        lambda r: self._load_sample(r, within, plan_only=True))
+                sigs.setdefault(raw_batch_signature(samples, self.cfg.TPU.FRAME_BUCKETS),
+                                samples)
+        return sigs
 
     def _make_batch(self, samples):
         t_bucket = pick_bucket(max(len(s["actioness"]) for s in samples),
@@ -149,17 +188,8 @@ class Loader:
 
         def load_batch(bi, sample_pool):
             sl = slice(bi * self.global_batch, (bi + 1) * self.global_batch)
-            rows, rpad = indices[sl], pad[sl]
-            real = [(j, sample_pool.submit(self._load_sample, r, bi))
-                    for j, r in enumerate(rows) if not rpad[j]]
-            if not real:  # a whole batch of wrap-around rows: decode one to fill it
-                real = [(0, sample_pool.submit(self._load_sample, rows[0], bi))]
-                rpad = np.ones_like(rpad)
-            got = {j: f.result() for j, f in real}
-            filler = {**got[real[0][0]], "pad": True}
-            samples = [got[j] if (j in got and not rpad[j]) else filler
-                       for j in range(len(rows))]
-            return self._make_batch(samples)
+            return self._make_batch(self._eval_samples(
+                indices[sl], pad[sl], lambda r: sample_pool.submit(self._load_sample, r, bi)))
 
         return self._pipelined(load_batch, 0, n_batches)
 

@@ -86,8 +86,25 @@ def subsample_batch(batch, meta: List[Dict], start: int):
             [{**m, "frame_ids": m["frame_ids"][start::2]} for m in meta])
 
 
-def _orig_sizes(meta: List[Dict], device) -> torch.Tensor:
-    return torch.tensor([m["ori_size"] for m in meta], dtype=torch.int32).to(device)
+def orig_sizes(meta: List[Dict]) -> np.ndarray:
+    """[rows, 2] int32 (h, w) of each row's original frames: the host array
+    that crosses to the device with its batch."""
+    return np.asarray([m["ori_size"] for m in meta], np.int32).reshape(-1, 2)
+
+
+def eval_inputs(batch, meta: List[Dict], device_split: bool):
+    """The host side of one eval batch: (the forward's input -- the batch
+    itself with the device split, else its two streams stacked --, the
+    rows' original sizes, the two streams' meta)."""
+    b1, m1 = subsample_batch(batch, meta, 0)
+    b2, m2 = subsample_batch(batch, meta, 1)
+    return (batch if device_split else stack_streams(b1, b2)), orig_sizes(m1 + m2), m1, m2
+
+
+def to_host(tensors) -> List[np.ndarray]:
+    """The drain's device-to-host read, the one place do_eval waits for the
+    card (the JAX engine's device_get)."""
+    return [t.cpu().numpy() for t in tensors]
 
 
 def do_eval(cfg, model, loader, evaluator, logger=None):
@@ -100,20 +117,19 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
     it on the host. Either way the copy runs ahead on the prefetch thread,
     and the results of a batch are read back only once PIPELINE_DEPTH later
     batches are queued behind it, so the host's decoding of one batch
-    overlaps the device's work on the next ones."""
+    overlaps the device's work on the next ones. The rows' original sizes
+    cross with their batch, so the host waits for the card only to drain."""
     fwd = make_eval_forward(cfg, model)
     device_split = eval_device_split_active(cfg)
     device = next(model.parameters()).device
 
     def host_side(item):
         batch, _targets, meta = item
-        b1, m1 = subsample_batch(batch, meta, 0)
-        b2, m2 = subsample_batch(batch, meta, 1)
-        return (batch if device_split else stack_streams(b1, b2)), m1, m2
+        return eval_inputs(batch, meta, device_split)
 
     def drain(item):
         res, fv, m1, m2 = item
-        boxes, s_idx, e_idx, fv = (t.cpu().numpy() for t in (*res, fv))
+        boxes, s_idx, e_idx, fv = to_host((*res, fv))
         bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, fv, m1, m2)
         evaluator.update(bbox_pred)
         evaluator.video_update(temp_pred)
@@ -121,12 +137,11 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
     stream = prefetch_to_device((host_side(x) for x in loader), device, depth=2)
     pending: deque = deque()
     try:
-        for batch, m1, m2 in stream:
+        for batch, sizes, m1, m2 in stream:
             out = fwd(batch)
             fv = out["frame_valid"] if device_split else batch.frame_valid
             with torch.inference_mode():
-                res = postprocess(out["pred_boxes"], out["pred_sted"],
-                                  _orig_sizes(m1 + m2, device), fv)
+                res = postprocess(out["pred_boxes"], out["pred_sted"], sizes, fv)
             pending.append((res, fv, m1, m2))
             if len(pending) > PIPELINE_DEPTH:
                 drain(pending.popleft())

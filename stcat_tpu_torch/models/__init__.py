@@ -9,6 +9,7 @@ from torch import nn
 
 from ..ops.misc import resolve_device
 from .attention import MultiHeadAttention
+from .lstm_text import LSTMTextEncoder
 from .position2d import PositionEncoding2D
 from .stcat import STCATNet
 
@@ -19,13 +20,19 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     same weights on every device): lecun-normal matrices and convolutions,
     zero biases, unit norms, normal(0, 1) learned tokens and tables,
     uniform[0, 1) learned 2-D position tables. FrozenBN buffers stay the
-    identity."""
+    identity. An LSTM text encoder draws its own (``init_weights``)."""
 
     def normal_(t: torch.Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
+    owned = []  # modules that initialise themselves, with everything inside them
     for name, mod in model.named_modules():
-        if isinstance(mod, MultiHeadAttention):
+        if any(name.startswith(prefix) for prefix in owned):
+            continue
+        if isinstance(mod, LSTMTextEncoder):
+            mod.init_weights(generator)
+            owned.append(name + ".")
+        elif isinstance(mod, MultiHeadAttention):
             normal_(mod.in_proj_weight, 1.0 / math.sqrt(mod.d_model))
             mod.in_proj_bias.zero_()
         elif isinstance(mod, (nn.Linear, nn.Conv2d)):

@@ -6,7 +6,9 @@ The forward takes a fixed-shape VideoBatch and returns
 [B,T,T], aux_outputs [...]} as the JAX package's STCATNet does. Module names
 follow the reference STCAT state_dict (vis_encoder.0.body.*, input_proj,
 text_encoder.body/resizer, ground_encoder.encoder.*, ground_decoder.*,
-bbox_embed, temp_embed, action_embed).
+bbox_embed, temp_embed, action_embed). With MODEL.USE_LSTM the text encoder
+is ``lstm_text.LSTMTextEncoder`` (text_encoder.embedding, fwd_{l}, bwd_{l},
+proj) instead of RoBERTa and the resizer.
 
 ``model.train()`` turns dropout on (``MODEL.STCAT.DROPOUT`` in the encoder
 and decoders, ``HEAD_DROPOUT`` in the temp/action heads,
@@ -28,6 +30,7 @@ from ..core.batch import VideoBatch
 from ..ops.misc import inverse_sigmoid
 from .decoder import MLP, SpatialDecoder, TemplateGenerator, TimeDecoder
 from .encoder import CrossModalEncoder, TimeEmbedding
+from .lstm_text import LSTMTextEncoder
 from .position2d import PositionEncoding2D
 from .resnet import build_resnet, downsample_mask
 from .roberta import RobertaConfig, TextEncoder
@@ -62,11 +65,6 @@ class STCATNet(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         c, s = cfg, cfg.MODEL.STCAT
-        if c.MODEL.USE_LSTM:
-            raise NotImplementedError(
-                "MODEL.USE_LSTM (models/lstm_text.py) is not ported yet: see ROADMAP.md, "
-                "Queue A, 'lstm_text.py'"
-            )
         d = self.d_model = s.HIDDEN
         dtype = self.compute_dtype = _dtype(c.TPU.COMPUTE_DTYPE)
         vb = c.MODEL.VISION_BACKBONE
@@ -82,12 +80,18 @@ class STCATNet(nn.Module):
             PositionEncoding2D(vb.POS_ENC, d // 2),
         ])
         self.input_proj = nn.Conv2d(2048, d, 1)
-        tm = c.MODEL.TEXT_MODEL
-        self.text_encoder = TextEncoder(d, RobertaConfig(
-            vocab_size=tm.VOCAB_SIZE, hidden_size=tm.HIDDEN, num_layers=tm.LAYERS,
-            num_heads=tm.HEADS, intermediate_size=tm.INTERMEDIATE,
-            max_position_embeddings=tm.MAX_POS, dropout=tm.DROPOUT,
-        ), dtype, freeze_body=tm.FREEZE)
+        tm, lstm = c.MODEL.TEXT_MODEL, c.MODEL.LSTM
+        if c.MODEL.USE_LSTM:
+            self.text_encoder = LSTMTextEncoder(
+                tm.VOCAB_SIZE, d, hidden_size=lstm.HIDDEN_SIZE, embed_dim=lstm.EMBED_DIM,
+                num_layers=lstm.NUM_LAYERS, bidirectional=lstm.BIDIRECTIONAL,
+                glove_path=lstm.GLOVE_PATH)
+        else:
+            self.text_encoder = TextEncoder(d, RobertaConfig(
+                vocab_size=tm.VOCAB_SIZE, hidden_size=tm.HIDDEN, num_layers=tm.LAYERS,
+                num_heads=tm.HEADS, intermediate_size=tm.INTERMEDIATE,
+                max_position_embeddings=tm.MAX_POS, dropout=tm.DROPOUT,
+            ), dtype, freeze_body=tm.FREEZE)
         impl = c.TPU.ATTENTION_IMPL
         self.ground_encoder = _GroundEncoder(CrossModalEncoder(
             d, s.HEADS, s.FFN_DIM, s.ENC_LAYERS, c.INPUT.MAX_VIDEO_LEN,

@@ -10,6 +10,7 @@ einsums.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -42,6 +43,18 @@ def _axis_weights(in_size: int, out_size: int, scale: torch.Tensor,
     return w * inside[:, None, :]
 
 
+@functools.lru_cache(maxsize=16)
+def _norm_constants(mean: Tuple[float, ...], std: Tuple[float, ...],
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 mean and std vectors on ``device``, made once per device and
+    reused. They are filled on the device: ``torch.tensor(..., device=)``
+    would be a blocking copy from pageable host memory, one host wait per
+    call. Made outside inference mode, so training may use them too."""
+    with torch.inference_mode(False):
+        return tuple(torch.stack([torch.full((), v, dtype=torch.float32, device=device)
+                                  for v in values]) for values in (mean, std))
+
+
 def preprocess(raw: RawVideoBatch, mean: Tuple[float, ...],
                std: Tuple[float, ...]) -> VideoBatch:
     """RawVideoBatch (tensors) -> VideoBatch with float32 frames and masks."""
@@ -60,8 +73,7 @@ def preprocess(raw: RawVideoBatch, mean: Tuple[float, ...],
     f = torch.einsum("btywc,bwx->btyxc", f, wx)
 
     dev = f.device
-    mean_v = torch.tensor(mean, dtype=torch.float32, device=dev)
-    std_v = torch.tensor(std, dtype=torch.float32, device=dev)
+    mean_v, std_v = _norm_constants(tuple(mean), tuple(std), dev)
     f = (f - mean_v) / std_v
 
     rows = torch.arange(H, device=dev)[None, :] < raw.out_size[:, 0, None]

@@ -1,6 +1,6 @@
 """Online inference: a load-once predictor and a micro-batching request queue.
 
-    pred = GroundingPredictor(cfg, max_batch=2)            # cuda by default
+    pred = GroundingPredictor(cfg, "out/run", max_batch=2)  # cuda by default
     result = pred.predict(frames_u8, "a person waves")      # one request
     with MicroBatcher(pred) as mb:                           # concurrent callers
         result = mb.submit(frames_u8, "a person waves").result()
@@ -28,7 +28,7 @@ from .core.batch import RawVideoBatch, to_device
 from .data.batching import build_raw_batch, pick_bucket
 from .data.tokenize import build_tokenizer, check_tokenizer_for_weights
 from .data.transforms import build_transforms
-from .eval.engine import _decode_rows, merge_two_streams
+from .eval.engine import _decode_rows, merge_two_streams, orig_sizes, to_host
 from .models import build_model
 from .models.postprocess import postprocess
 from .ops.misc import resolve_device
@@ -45,27 +45,33 @@ def eval_forward(cfg, model, raw: RawVideoBatch) -> Dict[str, torch.Tensor]:
 class GroundingPredictor:
     """Owns the model, weights, tokenizer and device.
 
-    ``state_dict``: a port state_dict to load (e.g. from
-    ``convert.from_jax_variables``); else MODEL.WEIGHT, a reference-named
-    torch file or a training run's checkpoint directory (EMA weights
-    preferred), is loaded; with neither, the fresh init drawn from ``seed``
-    stays. predict() is thread-safe (calls serialize on a lock); use
-    MicroBatcher to batch concurrent requests.
+    ``weights`` (else MODEL.WEIGHT): a reference-named torch file, a training
+    run's checkpoint directory (EMA weights preferred) or a converted
+    checkpoint directory (``cli/convert.py``), loaded and logged through
+    ``logger``; the tokenizer guard checks that path. ``state_dict``: a port
+    state_dict to load instead (e.g. from ``convert.from_jax_variables``), with
+    no path to guard; it cannot be combined with ``weights``. With neither, the
+    fresh init drawn from ``seed`` stays. predict() is thread-safe (calls
+    serialize on a lock); use MicroBatcher to batch concurrent requests.
     """
 
-    def __init__(self, cfg, state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 max_batch: int = 1, device=None, seed: int = 0):
+    def __init__(self, cfg, weights: str = "", logger=None, max_batch: int = 1, device=None,
+                 seed: int = 0, state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        if weights and state_dict is not None:
+            raise ValueError("GroundingPredictor: pass weights or state_dict, not both")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max(1, int(max_batch))
         self.tokenizer = build_tokenizer(cfg)
-        check_tokenizer_for_weights(cfg, self.tokenizer, cfg.MODEL.WEIGHT)
+        path = weights or cfg.MODEL.WEIGHT
+        if state_dict is None:
+            check_tokenizer_for_weights(cfg, self.tokenizer, path, what="inference")
         self.transform = build_transforms(cfg)
         self.model = build_model(cfg, self.device, seed)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         else:
-            load_weights_for_eval(self.model, cfg.MODEL.WEIGHT)
+            load_weights_for_eval(self.model, path, logger)
         self._lock = threading.Lock()
 
     def _raw_sample(self, frames: np.ndarray, text: str, item_id, fids, pad: bool) -> Dict:
@@ -92,13 +98,12 @@ class GroundingPredictor:
             return out
 
         raw, m1, m2 = self.prepare(requests)
-        orig_sizes = torch.tensor([m["ori_size"] for m in m1 + m2], dtype=torch.int32)
         with self._lock, torch.inference_mode():
-            placed = to_device(raw, self.device)
+            placed, sizes = to_device(raw, self.device), to_device(orig_sizes(m1 + m2), self.device)
             out = eval_forward(self.cfg, self.model, placed)
-            boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"],
-                                              orig_sizes.to(self.device), placed.frame_valid)
-            boxes, s_idx, e_idx = boxes.cpu().numpy(), s_idx.cpu().numpy(), e_idx.cpu().numpy()
+            boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"], sizes,
+                                              placed.frame_valid)
+            boxes, s_idx, e_idx = to_host((boxes, s_idx, e_idx))
         fv = raw.frame_valid
         if all(m.get("pad") for m in m2):
             bbox_pred, temp_pred = _decode_rows(boxes, s_idx, e_idx, fv, m1, 0)

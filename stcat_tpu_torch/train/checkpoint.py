@@ -3,8 +3,9 @@
 ``Checkpointer(OUTPUT_DIR)`` keeps ``OUTPUT_DIR/checkpoints/model_<step>.pt``
 files, each one ``torch.save`` of {"step", "model" (the state_dict:
 parameters and FrozenBN buffers), "optimizer"
-(``GroupedOptimizer.state_dict()``: AdamW moments, the schedule's ``count``),
-"ema"}, and a ``last_checkpoint`` tag holding the newest committed step:
+(``GroupedOptimizer.state_dict()``: AdamW moments, the schedule's ``count``;
+None in a converted checkpoint, which cannot resume training), "ema"}, and a
+``last_checkpoint`` tag holding the newest committed step:
 
   * ``save(step, state)`` takes the device-to-host snapshot before it
     returns: every tensor is copied into pinned host memory by a
@@ -80,7 +81,7 @@ class Checkpointer:
         payload = _snapshot({
             "step": int(step),
             "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "optimizer": None if state.optimizer is None else state.optimizer.state_dict(),
             "ema": state.ema,
         })
         done = None
@@ -154,6 +155,11 @@ class Checkpointer:
         """Load a checkpoint into a TrainState in place (resume); returns
         (state, step)."""
         payload = self._load(step)
+        if payload["optimizer"] is None:
+            raise ValueError(
+                f"{self.dir} holds weights without optimizer state (a converted checkpoint, "
+                "cli/convert.py), so training cannot resume from it; pass it as MODEL.WEIGHT "
+                "to evaluate or serve it")
         state.model.load_state_dict(payload["model"], strict=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         if (state.ema is None) != (payload["ema"] is None):

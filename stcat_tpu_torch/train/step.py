@@ -40,7 +40,7 @@ from .optimizer import GroupedOptimizer, ema_update
 class TrainState:
     step: int
     model: nn.Module
-    optimizer: GroupedOptimizer
+    optimizer: Optional[GroupedOptimizer]   # None: converted weights (cli/convert.py)
     ema: Optional[Dict[str, torch.Tensor]]  # parameter name -> EMA copy (MODEL.EMA)
 
 

@@ -574,3 +574,161 @@ def test_tiny_train_loop_on_card_matches_cpu(dev, tmp_path):
         np.testing.assert_allclose(runs["cuda"].ema[name].cpu().numpy(),
                                    runs["cpu"].ema[name].numpy(), atol=2e-4, rtol=1e-3,
                                    err_msg=name)
+
+
+def _tiny_clips(cfg, b=2, t=8, seed=5):
+    """A raw batch of b seeded 48x64 clips with spans, boxes and sentences."""
+    from stcat_tpu_torch.data.batching import build_raw_batch
+    from stcat_tpu_torch.data.tokenize import HashTokenizer
+    from stcat_tpu_torch.data.transforms import build_transforms
+
+    rng = np.random.RandomState(seed)
+    transform = build_transforms(cfg)
+    samples = []
+    for i in range(b):
+        act = np.zeros(t, np.float32)
+        act[1 + i: 4 + i] = 1.0
+        plan, _, text = transform.plan((48, 64), np.zeros((0, 4), np.float32), f"clip {i} walks")
+        samples.append({"frames_u8": rng.randint(0, 256, (t, 48, 64, 3), dtype=np.uint8),
+                        "plan": plan, "text": text, "actioness": act,
+                        "boxes_cxcywh": rng.uniform(0.2, 0.6, (3, 4)).astype(np.float32)})
+    return build_raw_batch(samples, t, HashTokenizer(cfg.MODEL.TEXT_MODEL.VOCAB_SIZE), 12)
+
+
+def test_train_step_and_eval_wait_for_the_card_only_to_drain(dev, tmp_path, monkeypatch):
+    """Under torch.cuda.set_sync_debug_mode("error") (any host wait on the
+    card raises): one make_train_step step at GRAD_ACCUM 2 from host arrays,
+    and do_eval in both TPU.EVAL_DEVICE_SPLIT variants up to its first
+    drain, whose device-to-host read is the one wait the JAX engine has
+    too. Then the eval pass finishes with its metrics in [0, 1]."""
+    from stcat_tpu_torch.config import merge_from_list
+    from stcat_tpu_torch.data.loader import Loader
+    from stcat_tpu_torch.data.synthetic import write_synthetic_cache, SyntheticDataset
+    from stcat_tpu_torch.eval import engine
+    from stcat_tpu_torch.eval.evaluator import build_evaluator
+    from stcat_tpu_torch.models import build_model
+    from stcat_tpu_torch.train.optimizer import make_optimizer
+    from stcat_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg = tiny_cfg(["MODEL.STCAT.DROPOUT", 0.0, "TPU.GRAD_ACCUM", 2, "INPUT.RESOLUTION", 64,
+                    "INPUT.MAX_QUERY_LEN", 12, "TPU.FRAME_BUCKETS", "[8]",
+                    "DATA_DIR", str(tmp_path)])
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = make_optimizer(cfg, model, num_training_steps=10)
+    state = create_train_state(cfg, model, opt)
+    step = make_train_step(cfg, model, opt)
+    raw, targets, _ = _tiny_clips(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, raw, targets, gen)  # first step: kernels built, optimizer state made
+    torch.cuda.synchronize()
+    counts = pka.BWD_LAUNCHES.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = step(state, raw, targets, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pka.BWD_LAUNCHES.count - counts == 16 and np.isfinite(losses["loss"].item())
+
+    write_synthetic_cache(str(tmp_path), "VidSTG", "test", n_items=5, n_frames=12)
+    real = engine.to_host
+    drains = []
+
+    def to_host(tensors):
+        drains.append(torch.cuda.get_sync_debug_mode())
+        torch.cuda.set_sync_debug_mode("default")
+        return real(tensors)
+
+    monkeypatch.setattr(engine, "to_host", to_host)
+    for split in ("true", "false"):
+        c = merge_from_list(cfg, ["TPU.EVAL_DEVICE_SPLIT", split])
+        loader = Loader(c, SyntheticDataset(c, "test"), global_batch=1, is_train=False)
+        drains.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = engine.do_eval(c, model, loader, build_evaluator(c))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert drains[0] == 2  # the first drain came with "error" still set
+        assert all(0.0 <= v <= 1.0 for v in res.values())
+
+
+def test_lstm_variant_on_card_matches_cpu(dev):
+    """MODEL.USE_LSTM at tiny widths, fp32, every kernel route on: the
+    forward on the card (K1, K3, cuDNN's LSTM) against the CPU's plain one
+    at atol 2e-4 / rtol 1e-3, and one training forward+backward's LSTM
+    gradients at the same tolerance, K2 launched on the card."""
+    from stcat_tpu_torch.core.batch import to_device
+    from stcat_tpu_torch.models import build_model
+    from stcat_tpu_torch.ops.preprocess import preprocess
+    from stcat_tpu_torch.train.optimizer import make_optimizer
+    from stcat_tpu_torch.train.step import accumulate_grads
+
+    cfg = tiny_cfg(["MODEL.USE_LSTM", "true", "MODEL.LSTM.HIDDEN_SIZE", 32,
+                    "MODEL.LSTM.EMBED_DIM", 24, "MODEL.STCAT.DROPOUT", 0.0,
+                    "MODEL.STCAT.HEAD_DROPOUT", 0.0, "INPUT.RESOLUTION", 64,
+                    "INPUT.MAX_QUERY_LEN", 12, "TPU.FRAME_BUCKETS", "[8]"])
+    raw, targets, _ = _tiny_clips(cfg)
+    outs, grads = {}, {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, device=device, seed=0)
+        placed = to_device(raw, device)
+        counts = (pka.LAUNCHES.count, pka.BWD_LAUNCHES.count, pkb.LAUNCHES.count)
+        with torch.inference_mode():
+            outs[device] = model(preprocess(placed, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD))
+        accumulate_grads(cfg, model, make_optimizer(cfg, model, 10), placed,
+                         to_device(targets, device), torch.Generator(device).manual_seed(0))
+        launched = tuple(c1 - c0 for c0, c1 in zip(counts, (pka.LAUNCHES.count,
+                                                             pka.BWD_LAUNCHES.count,
+                                                             pkb.LAUNCHES.count)))
+        assert launched == ((0, 0, 0) if device == "cpu" else (16, 8, 2))
+        grads[device] = {n: p.grad for n, p in model.named_parameters()
+                         if n.startswith("text_encoder.")}
+    for key in ("pred_boxes", "pred_sted", "pred_actioness"):
+        np.testing.assert_allclose(outs["cuda"][key].cpu().numpy(), outs["cpu"][key].numpy(),
+                                   atol=2e-4, rtol=1e-3, err_msg=key)
+    for name, g in grads["cpu"].items():
+        np.testing.assert_allclose(grads["cuda"][name].cpu().numpy(), g.numpy(), atol=2e-4,
+                                   rtol=1e-3, err_msg=name)
+
+
+def test_serve_cli_round_trip_on_card(dev):
+    """cli.serve's build_server on the card: a POSTed clip's answer against
+    the CPU predictor with the same seeded weights (boxes within 0.5 px, the
+    same span), K1 and K3 launched, K2 not."""
+    import http.client
+    import io
+    import json
+    import threading
+
+    from stcat_tpu_torch.cli.serve import build_server
+    from stcat_tpu_torch.serve import GroundingPredictor
+
+    cfg = tiny_cfg(["INPUT.RESOLUTION", 64, "INPUT.MAX_QUERY_LEN", 12, "TPU.FRAME_BUCKETS", "[8]"])
+    server, batcher = build_server(cfg, "127.0.0.1", 0, max_batch=2, max_wait_ms=5.0,
+                                   device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    clip = np.random.RandomState(3).randint(0, 256, (12, 48, 64, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    np.savez(buf, frames=clip, text=np.array("a person waves"))
+    counts = (pka.LAUNCHES.count, pka.BWD_LAUNCHES.count, pkb.LAUNCHES.count)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+        conn.request("POST", "/predict", buf.getvalue())
+        resp = conn.getresponse()
+        got = json.loads(resp.read())
+        conn.close()
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(timeout=10)
+    assert resp.status == 200
+    launched = tuple(c1 - c0 for c0, c1 in zip(counts, (pka.LAUNCHES.count,
+                                                         pka.BWD_LAUNCHES.count,
+                                                         pkb.LAUNCHES.count)))
+    assert launched[0] > 0 and launched[1] == 0 and launched[2] > 0
+    want = GroundingPredictor(cfg, max_batch=2, device="cpu").predict(clip, "a person waves")
+    assert got["span"] == list(want["span"])
+    for fid, box in want["boxes"].items():
+        np.testing.assert_allclose(got["boxes"][str(fid)], box, atol=0.5, rtol=0)

@@ -127,17 +127,22 @@ def test_port_imports_no_jax():
         "'orbax', 'stcat_tpu', 'PIL', 'tensorboard'))\n"
         "assert not bad, bad\n"
         "for m in ('train.criterion', 'train.optimizer', 'train.step', 'train.loop', "
-        "'cli.train', 'data.loader'):\n"
+        "'cli.train', 'cli.test', 'cli.convert', 'cli.infer', 'cli.serve', 'cli.repro', "
+        "'cli.precompile', 'models.lstm_text', 'data.loader'):\n"
         "    assert 'stcat_tpu_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('stcat_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 51  # every submodule was imported
+    assert int(res.stdout.strip()) >= 58  # every submodule was imported
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
+    """Every entry point runs on the card unless the CPU is asked for: on a
+    host without one each raises, naming CUDA, before it does any work."""
+    import importlib
+
     from stcat_tpu_torch.serve import GroundingPredictor
 
     cfg = port_cfg(tiny_cfg())
@@ -148,10 +153,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         GroundingPredictor(cfg)
+    for cli, argv in (("test", []), ("convert", ["--src", "absent.pth", "--out", "absent"]),
+                      ("infer", ["--frames", "absent.npy", "--query", "q"]), ("serve", []),
+                      ("repro", ["--weights", "absent", "--data-dir", "absent"]),
+                      ("precompile", [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            importlib.import_module(f"stcat_tpu_torch.cli.{cli}").main(argv)
     assert next(build_model(cfg, device="cpu").parameters()).device.type == "cpu"
-
-
-def test_use_lstm_is_not_ported_yet():
-    cfg = port_cfg(tiny_cfg(["MODEL.USE_LSTM", "true"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PNet(cfg)

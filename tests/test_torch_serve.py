@@ -152,3 +152,56 @@ def test_predictor_loads_model_weight(predictors, tmp_path):
     pth = GroundingPredictor(with_weight(str(tmp_path / "w.pth"), TEXT_MODEL=text), device="cpu")
     for k, v in pth.model.state_dict().items():
         assert torch.equal(v, model.state_dict()[k]), k
+
+
+def test_predictor_takes_weights_and_logger(predictors, tmp_path):
+    """The JAX predictor's signature, GroundingPredictor(cfg, weights,
+    logger, ...): ``weights`` wins over MODEL.WEIGHT and is logged through
+    ``logger``; the tokenizer guard checks the path that is loaded (a
+    reference .pth in weights is refused under the hash tokenizer though
+    MODEL.WEIGHT is empty; a run directory in weights is taken though
+    MODEL.WEIGHT names a .pth); a state_dict is loaded without a path guard;
+    weights and state_dict together are refused."""
+    import dataclasses
+    import logging
+
+    import torch
+
+    from stcat_tpu_torch.models import build_model
+    from stcat_tpu_torch.train.checkpoint import Checkpointer
+    from stcat_tpu_torch.train.optimizer import make_optimizer
+    from stcat_tpu_torch.train.step import create_train_state
+
+    _, port = predictors
+    cfg = port.cfg
+    model = build_model(cfg, device="cpu", seed=4)
+    state = create_train_state(cfg, model, make_optimizer(cfg, model, num_training_steps=4))
+    Checkpointer(str(tmp_path / "run")).save(1, state, block=True)
+    pth = str(tmp_path / "w.pth")
+    torch.save(model.state_dict(), pth)
+    with_pth = dataclasses.replace(cfg, MODEL=dataclasses.replace(cfg.MODEL, WEIGHT=pth))
+
+    lines = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("test_predictor_weights")
+    logger.addHandler(Catch())
+    logger.setLevel(logging.INFO)
+    pred = GroundingPredictor(with_pth, str(tmp_path / "run"), logger, max_batch=2,
+                              device="cpu")
+    for k, v in pred.model.state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k
+    assert any(str(tmp_path / "run") in line for line in lines)
+
+    with pytest.raises(RuntimeError, match="HASH tokenizer"):
+        GroundingPredictor(cfg, weights=pth, device="cpu")
+    with pytest.raises(RuntimeError, match="HASH tokenizer"):
+        GroundingPredictor(with_pth, device="cpu")
+    sd = GroundingPredictor(with_pth, device="cpu", state_dict=model.state_dict())
+    assert torch.equal(sd.model.input_proj.weight, model.input_proj.weight)
+    with pytest.raises(ValueError, match="not both"):
+        GroundingPredictor(cfg, weights=str(tmp_path / "run"), device="cpu",
+                           state_dict=model.state_dict())
