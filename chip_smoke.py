@@ -66,9 +66,20 @@ Phases (any failure exits non-zero; no phase's error is caught):
      one), and cli.repro --synthetic's report;
   7. MODEL.USE_LSTM true, full width otherwise: one served batch and one
      train step (K1 = K2 = 24, K3 = 30 per microbatch).
+  8. the input paths, on the loop phase's items as a JPEG corpus: whether
+     g++, jpeglib.h and ffmpeg exist and the native decoders built, native
+     libjpeg vs PIL ms per frame; then train.loop.train for 2 iterations
+     with EMA validation at 1, once with TPU.DEVICE_PREPROCESS false (the
+     host replays the transform plans on float32 frames) and once with
+     TPU.INGEST_LAYOUT yuv420, each step and the validation's forwards under
+     set_sync_debug_mode("error"): K1 = K2 = 24 and K3 = 30 launches per
+     microbatch, K2 none in validation, metrics in [0, 1]; bytes per batch
+     crossing to the card, data and step time, peak card memory and host
+     RSS, and the decoder route of every clip.
 Every phase prints its seconds. The line before the last is a JSON object
-listing every kernel's numbers, with its launches on each phase's path; the
-last line is the device record.
+listing every kernel's numbers, with its launches on each phase's path
+(launches_by_path: serving, training, loop, cli, lstm, inputs); the last
+line is the device record.
 """
 
 from __future__ import annotations
@@ -1242,6 +1253,201 @@ def cli_phase(tmp):
     return _counts()
 
 
+def peak_rss() -> int:
+    """The process's peak resident set size so far, in bytes (host memory:
+    decoded and transformed frames, pinned staging; earlier phases included)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _array_bytes(*containers) -> int:
+    """Bytes of every numpy array field of the given batch containers (or
+    bare arrays): what crosses to the card."""
+    import dataclasses
+
+    total = 0
+    for c in containers:
+        if isinstance(c, np.ndarray):
+            total += c.nbytes
+        elif dataclasses.is_dataclass(c):
+            total += sum(v.nbytes for f in dataclasses.fields(c)
+                         if isinstance(v := getattr(c, f.name), np.ndarray))
+    return total
+
+
+def _decode_speed(data: str) -> None:
+    """The native libjpeg decoder against PIL on one clip of the JPEG
+    corpus (128 frames of 320x240 here), ms per frame (best of 3; 2 decode
+    threads native, one PIL); the native one only where it built."""
+    from stcat_tpu_torch.data import decode, jpeg_decode
+
+    vid = os.path.join(data, "frame", sorted(os.listdir(os.path.join(data, "frame")))[0])
+    paths = [os.path.join(vid, n) for n in sorted(os.listdir(vid))]
+
+    def best(fn):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t)
+        return min(times) * 1e3 / len(paths), out
+
+    pil_ms, pil = best(lambda: decode._pil_rgb(paths))
+    clip = f"a {pil.shape[0]}-frame {pil.shape[2]}x{pil.shape[1]} JPEG clip"
+    if jpeg_decode.available():
+        native_ms, native = best(lambda: jpeg_decode.decode_jpeg_batch(paths, *pil.shape[1:3]))
+        same = native is not None and np.array_equal(native, pil)
+        print(f"  decode of {clip}: native libjpeg {native_ms:.3f} ms per frame, PIL "
+              f"{pil_ms:.3f} ms per frame (frames {'bitwise equal' if same else 'differ'})")
+    else:
+        why = [ln for ln in jpeg_decode.LIBRARY.error.splitlines() if "error" in ln]
+        print(f"  decode of {clip}: PIL {pil_ms:.3f} ms per frame; native libjpeg not built: "
+              f"{(why or [jpeg_decode.LIBRARY.error])[-1].strip()}")
+
+
+INPUT_PATHS = (("host pixel path (TPU.DEVICE_PREPROCESS false)", "host",
+                ["TPU.DEVICE_PREPROCESS", "false"]),
+               ("yuv420 ingest (TPU.INGEST_LAYOUT yuv420)", "yuv420",
+                ["TPU.INGEST_LAYOUT", "yuv420"]))
+
+
+def inputs_phase(tmp):
+    """The input paths the loop phase does not take, at full width through
+    train.loop.train on the loop phase's items as a JPEG corpus: the host
+    pixel path and the yuv420 ingest, each 2 iterations with EMA validation
+    at 1, every step and the validation's forwards under the sync check
+    (each drain's device-to-host read let through). K1 = K2 = 24 and K3 = 30
+    launches per microbatch, K2 none in validation; bytes per batch crossing
+    to the card, data and step time, peak card and host memory; the decoder
+    routes that served the clips, and native vs PIL decode speed."""
+    from stcat_tpu_torch.core.logging import setup_logger
+    from stcat_tpu_torch.data import native_decode
+    from stcat_tpu_torch.data.decode import ROUTES
+    from stcat_tpu_torch.data.synthetic import SyntheticDataset, materialize_frame_corpus
+    from stcat_tpu_torch.eval import engine
+    from stcat_tpu_torch.train import loop
+
+    data = os.path.join(tmp, "data")
+    written = sum(materialize_frame_corpus(data, "VidSTG", split) for split in ("train", "test"))
+    print(f"  tools: g++ {shutil.which('g++') is not None}, /usr/include/jpeglib.h "
+          f"{os.path.exists('/usr/include/jpeglib.h')}, ffmpeg {shutil.which('ffmpeg') is not None};"
+          f" the framepool library {'built' if native_decode.available() else 'not built'}; "
+          f"{written} corpus frames written here (0: an earlier phase wrote them)")
+    _decode_speed(data)
+
+    saved = (loop.LOG_PERIOD, loop.make_train_step, loop.run_validation, loop.prefetch_to_device,
+             engine.to_host, engine.prefetch_to_device)
+    real_make, real_val, real_pf, real_to_host, real_eval_pf = saved[1:]
+    launches = dict.fromkeys(_counts(), 0)
+    try:
+        for label, name, opts in INPUT_PATHS:
+            out = os.path.join(tmp, f"inputs_{name}")
+            cfg = loop_cfg(tmp, *opts, "OUTPUT_DIR", out, "SOLVER.VAL_PERIOD", "1",
+                           "SOLVER.CHECKPOINT_PERIOD", "100")
+            datasets, crossed, eval_crossed, val = [], [], [], []
+
+            def make(*a, **k):
+                step = real_make(*a, **k)
+
+                def checked(*args, **kw):
+                    with no_host_waits():
+                        return step(*args, **kw)
+                return checked
+
+            def to_host(tensors):  # the drain's read, the one wait do_eval has
+                torch.cuda.set_sync_debug_mode("default")
+                try:
+                    return real_to_host(tensors)
+                finally:
+                    torch.cuda.set_sync_debug_mode("error")
+
+            def run_validation(*args, **kwargs):
+                before = _counts()
+                t = time.time()
+                with no_host_waits():
+                    res = real_val(*args, **kwargs)
+                val.append((time.time() - t, res, _launched(before)))
+                return res
+
+            def counted(items, record):
+                for item in items:
+                    record.append(_array_bytes(*item[:2]))
+                    yield item
+
+            loop.LOG_PERIOD, loop.make_train_step, loop.run_validation = 1, make, run_validation
+            loop.prefetch_to_device = lambda it, dev, depth=2: real_pf(counted(it, crossed), dev,
+                                                                        depth)
+            engine.to_host = to_host
+            engine.prefetch_to_device = lambda it, dev, depth=2: real_eval_pf(
+                counted(it, eval_crossed), dev, depth)
+
+            def make_dataset(c, split):
+                datasets.append(SyntheticDataset(c, split))
+                return datasets[-1]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = _counts()
+            t0 = time.time()
+            state, it = loop.train(cfg, make_dataset,
+                                   logger=setup_logger(f"chip_smoke_{name}", out),
+                                   max_iters=2, device=DEVICE)
+            wall = time.time() - t0
+            total = _launched(before)
+            if it != 2 or len(val) != 1:
+                raise AssertionError(f"{label}: iteration {it}, {len(val)} validation passes "
+                                     "(expected 2 and 1)")
+            val_s, res, val_launches = val[0]
+            with open(os.path.join(out, "validation.jsonl")) as f:
+                batches = [json.loads(line) for line in f][0]["batches"]
+            train_launches = {k: v - val_launches[k] for k, v in total.items()}
+            microbatches = 2 * ACCUM
+            want = {"flash_attention": K1_PER_MICROBATCH * microbatches,
+                    "flash_attention_bwd": K1_PER_MICROBATCH * microbatches,
+                    "fused_bottleneck": K3_PER_MICROBATCH * microbatches}
+            want_val = {"flash_attention": K1_PER_MICROBATCH * batches, "flash_attention_bwd": 0,
+                        "fused_bottleneck": K3_PER_MICROBATCH * batches}
+            print(f"  {label}: train(max_iters=2) in {wall:.1f} s under the sync check; launches "
+                  f"training ({microbatches} microbatches) {train_launches}, validation "
+                  f"({batches} stacked batches) {val_launches}")
+            if train_launches != want or val_launches != want_val:
+                raise AssertionError(f"{label}: launches training {train_launches} (expected "
+                                     f"{want}), validation {val_launches} (expected {want_val})")
+            bad = {k: v for k, v in res.items() if not 0.0 <= v <= 1.0}
+            if bad:
+                raise AssertionError(f"{label}: validation metrics outside [0, 1]: {bad}")
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            if [r["step"] for r in rows] != [1, 2] or not all(np.isfinite(r["loss"]) for r in rows):
+                raise AssertionError(f"{label}: metrics.jsonl {rows}")
+            for r in rows:
+                print(f"    iteration {r['step']}: loss {r['loss']:.5f} step_time "
+                      f"{r['step_time']:.3f} s data_time {r['data_time']:.4f} s")
+            print(f"    bytes crossing to the card per train batch (frames, masks, plan, tokens, "
+                  f"targets): {crossed[:2]}; per validation batch {eval_crossed}")
+            print(f"    validation at 1: {batches} stacked batches in {val_s:.3f} s "
+                  f"({val_s / batches:.3f} s per batch); "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
+                              if k.endswith(("tiou", "_viou"))))
+            routes = {r: sum(d.decode_routes.counts()[r] for d in datasets) for r in ROUTES}
+            print(f"    decoder routes (clips, train and test datasets): {routes}")
+            if routes["rendered"] or not routes["native"] + routes["pil"]:
+                raise AssertionError(f"{label}: the clips did not come from the JPEG corpus")
+            print(f"    peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"(max_memory_allocated); peak host RSS {peak_rss() / 2**30:.2f} GiB "
+                  f"(the process's peak so far)")
+            for k, v in total.items():
+                launches[k] += v
+            del state
+            shutil.rmtree(out, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        (loop.LOG_PERIOD, loop.make_train_step, loop.run_validation, loop.prefetch_to_device,
+         engine.to_host, engine.prefetch_to_device) = saved
+    return launches
+
+
 def lstm_phase():
     """MODEL.USE_LSTM true (GloVe-sized embedding, 2 bi-LSTM layers of 256
     per direction) at full width otherwise: one served batch through
@@ -1368,6 +1574,12 @@ def main() -> int:
         t0 = time.time()
         clis = cli_phase(tmp)
         print(f"CLI phase took {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        print("the input paths at full width (host pixel path, yuv420; JPEG corpus):")
+        t0 = time.time()
+        inputs = inputs_phase(tmp)
+        print(f"input-paths phase took {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1393,7 +1605,7 @@ def main() -> int:
     for name, (route, source, replaces, basis) in meta.items():
         t = totals[name]
         by_path = {"serving": served[name], "training": trained[name], "loop": looped[name],
-                   "cli": clis[name], "lstm": lstm[name]}
+                   "cli": clis[name], "lstm": lstm[name], "inputs": inputs[name]}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

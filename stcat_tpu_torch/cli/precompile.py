@@ -8,7 +8,9 @@ With multi-scale augmentation a run meets several batch shapes, (B, frame
 bucket, source canvas, output canvas, layout) signatures. This tool lists
 every signature a recipe will produce without decoding a pixel
 (``Loader.scan_signatures`` replays the loader's epoch and sample generators
-through plan-only samples), per split. Without ``--list`` it then builds the
+through plan-only samples), per split, rgb or yuv420 by TPU.INGEST_LAYOUT
+(the host pixel path, ``TPU.DEVICE_PREPROCESS false``, is refused: its
+shapes key only on the frame bucket and resolution). Without ``--list`` it then builds the
 kernels into ``stcat_tpu_torch/_build/``, runs each train signature once
 through ``make_train_step`` (K1, K2, K3 and the step's optimizer update) and
 each eval signature once through the eval forward and ``postprocess``, in the
@@ -89,6 +91,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = load_config(args.config_file, args.opts)
+    if not cfg.TPU.DEVICE_PREPROCESS:
+        raise SystemExit("precompile targets the raw (TPU.DEVICE_PREPROCESS) input path; "
+                         "host-transform shapes key only on (bucket, resolution)")
     logger = setup_logger("stcat_tpu_torch.precompile", cfg.OUTPUT_DIR)
     epochs = args.epochs if args.epochs > 0 else cfg.SOLVER.MAX_EPOCH
     scanned = scan(cfg, dataset_builder(args.synthetic), args.mode, epochs, logger)

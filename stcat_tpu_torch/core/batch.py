@@ -43,9 +43,14 @@ class RawVideoBatch:
     output coords to (post-flip) source-canvas coords:
     y_src = affine_scale[b, 0] * y_out + affine_off[b, 0] (x likewise).
     out_canvas is the padded target (H, W); out_size[b] the valid region.
+
+    The yuv420 layout (TPU.INGEST_LAYOUT "yuv420") leaves frames_u8 None and
+    carries a full-size luma plane frames_y and a half-size interleaved
+    chroma plane frames_cbcr instead: 1.5 bytes a pixel where rgb takes 3.
+    JFIF siting puts chroma sample j at luma coordinate 2j + 0.5.
     """
 
-    frames_u8: Any     # [B, T, Hs, Ws, 3] uint8
+    frames_u8: Any     # [B, T, Hs, Ws, 3] uint8, or None (yuv420)
     frame_valid: Any   # [B, T] bool
     flip: Any          # [B] bool
     affine_scale: Any  # [B, 2] f32 (ay, ax)
@@ -54,6 +59,8 @@ class RawVideoBatch:
     token_ids: Any     # [B, L] int
     token_valid: Any   # [B, L] bool
     out_canvas: Tuple[int, int] = (0, 0)
+    frames_y: Any = None     # [B, T, Hs, Ws] uint8 (yuv420)
+    frames_cbcr: Any = None  # [B, T, Hs//2, Ws//2, 2] uint8 (yuv420)
 
 
 _PER_CLIP = ("token_ids", "token_valid", "out_size", "affine_scale", "affine_off")
@@ -62,7 +69,7 @@ _PER_CLIP = ("token_ids", "token_valid", "out_size", "affine_scale", "affine_off
 def subsample_stream(batch, start: int):
     """The even (start 0) or odd (start 1) frame stream of a VideoBatch or
     RawVideoBatch: every [B, T, ...] field sliced along the frame axis,
-    per-clip fields kept. Works on numpy arrays and tensors."""
+    per-clip fields and None fields kept. Works on numpy arrays and tensors."""
     t = batch.frame_valid.shape[1]
     upd = {}
     for f in dataclasses.fields(batch):
@@ -74,7 +81,8 @@ def subsample_stream(batch, start: int):
 
 def _stack_two(b1, b2, pad, cat):
     """b1 and b2 concatenated along the batch axis; frame-axis fields of b2
-    one frame shorter than b1's (an odd T) zero-padded first."""
+    one frame shorter than b1's (an odd T) zero-padded first. Fields that
+    are not arrays (out_canvas, a None plane) must be equal and are kept."""
     t = b1.frame_valid.shape[1]
     upd = {}
     for f in dataclasses.fields(b1):

@@ -1,7 +1,7 @@
-"""Data loader: a sample pool and a batch pool feeding fixed-shape raw batches.
+"""Data loader: a sample pool and a batch pool feeding fixed-shape batches.
 
     loader = make_loader(cfg, dataset, "train", start_iter=0)
-    for raw_batch, targets, meta in loader: ...     # numpy containers
+    for batch, targets, meta in loader: ...     # numpy containers
 
   * train: an infinite, iteration-counted stream over MAX_EPOCH epochs,
     reshuffled per epoch from SEED + epoch, resumable at ``start_iter``;
@@ -14,7 +14,11 @@
     (SEED, iteration, index), so a batch is the same whichever worker builds
     it and whenever the run resumed;
   * DATALOADER.PREFETCH_DEPTH whole batches in flight on a batch pool, each
-    fanning its samples out to a pool of DATALOADER.NUM_WORKERS threads.
+    fanning its samples out to a pool of DATALOADER.NUM_WORKERS threads;
+  * TPU.DEVICE_PREPROCESS (with a dataset that ``supports_raw``): raw
+    batches, rgb or yuv420 by TPU.INGEST_LAYOUT, resampled on the card;
+    without it the host transforms the pixels and the loader yields
+    VideoBatches of normalised float32 frames (``build_batch``).
 The world size and rank come from ``core/dist.py``: each rank loads its own
 shard of every epoch. The host-to-device copy is ``core/prefetch.py``'s.
 """
@@ -29,8 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..core.dist import get_rank, get_world_size
-from .batching import build_raw_batch, pick_bucket, raw_batch_signature
-from .datasets import check_raw_ingest
+from .batching import build_batch, build_raw_batch, pick_bucket, raw_batch_signature
 from .tokenize import build_tokenizer
 
 
@@ -38,9 +41,13 @@ class Loader:
     def __init__(self, cfg, dataset, global_batch: int, is_train: bool, start_iter: int = 0,
                  shard_index: int = 0, num_shards: int = 1,
                  num_workers: Optional[int] = None, seed: Optional[int] = None):
-        check_raw_ingest(cfg)
         self.cfg = cfg
         self.dataset = dataset
+        self.raw = bool(cfg.TPU.DEVICE_PREPROCESS) and bool(getattr(dataset, "supports_raw",
+                                                                    False))
+        if cfg.TPU.INGEST_LAYOUT not in ("rgb", "yuv420"):
+            raise ValueError(f"TPU.INGEST_LAYOUT={cfg.TPU.INGEST_LAYOUT!r}: "
+                             "expected 'rgb' or 'yuv420'")
         self.global_batch = global_batch
         self.is_train = is_train
         self.start_iter = start_iter
@@ -100,9 +107,7 @@ class Loader:
 
     def _load_sample(self, index: int, it: int, plan_only: bool = False):
         rng = np.random.default_rng((self.seed * 1_000_003 + it) % (2**31) + int(index))
-        if plan_only:
-            return self.dataset.__getitem__(int(index), rng=rng, plan_only=True)
-        return self.dataset.__getitem__(int(index), rng=rng)
+        return self.dataset.__getitem__(int(index), rng=rng, raw=self.raw, plan_only=plan_only)
 
     def _eval_samples(self, rows, rpad, load):
         """An eval batch's samples from load(row), a sample or the Future of
@@ -124,7 +129,12 @@ class Loader:
         generators replayed through plan-only samples. ``_make_batch`` of an
         exemplar builds a batch of that shape. Train scans ``epochs`` epochs
         (the augmentation draws differ per epoch); eval is one pass, its
-        wrap-around rows filled as the iterator fills them."""
+        wrap-around rows filled as the iterator fills them. Raw batches only:
+        the host path's batches are keyed by frame bucket and resolution."""
+        if not self.raw:
+            raise ValueError(
+                "scan_signatures targets the raw (TPU.DEVICE_PREPROCESS) path; host-transform "
+                "batches key only on (bucket, resolution)")
         sigs: Dict[tuple, list] = {}
         for epoch in range(epochs if self.is_train else 1):
             indices, pad = self._epoch_indices(epoch)
@@ -144,7 +154,8 @@ class Loader:
     def _make_batch(self, samples):
         t_bucket = pick_bucket(max(len(s["actioness"]) for s in samples),
                                self.cfg.TPU.FRAME_BUCKETS)
-        return build_raw_batch(samples, t_bucket, self.tokenizer, self.cfg.INPUT.MAX_QUERY_LEN)
+        build = build_raw_batch if self.raw else build_batch
+        return build(samples, t_bucket, self.tokenizer, self.cfg.INPUT.MAX_QUERY_LEN)
 
     def __iter__(self):
         return self._train_iter() if self.is_train else self._eval_iter()

@@ -174,8 +174,9 @@ class SyntheticDataset(GroundingDataset):
         return make_vidstg_input_clip(self.cfg, self.split, item, rng)
 
     def load_frames(self, item):
-        if os.path.isdir(os.path.join(self.data_dir, "frame", str(item["vid"]))):
+        if self._frame_dir(item) is not None:
             return super().load_frames(item)
+        self.decode_routes.add("rendered")
         return render_frames(item, item["frame_ids"])
 
 

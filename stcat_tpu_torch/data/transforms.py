@@ -6,16 +6,44 @@ Eval: one resize of the shortest side to RESOLUTION (max 720). Train: hflip
 multi-scale resize or resize -> RandomSizeCrop -> resize. The box math is
 done here on the host; every random draw comes from the caller's
 ``np.random.Generator``, in the JAX package's order, so a seed gives the
-same plan, boxes and text there and here. The host pixel path (replaying
-the plan on float frames) is not ported: pixels are resampled on the card.
+same plan, boxes and text there and here. Pixels are resampled on the card
+along the plan's composed affine (``ops/preprocess.py``), or, with
+``TPU.DEVICE_PREPROCESS false``, here on the host: ``apply_pixels`` replays
+the plan's op chain (flip, chained bilinear resizes, crops) on float32
+frames and ``VideoTransform.__call__`` normalises them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+
+
+def bilinear_resize(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Separable bilinear resize of [T, H, W, C] with half-pixel centers
+    (``F.interpolate(..., align_corners=False)`` without antialiasing), edge
+    taps clamped."""
+    t, h, w, c = frames.shape
+    if (h, w) == (out_h, out_w):
+        return frames
+
+    def axis_weights(n_in, n_out):
+        src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+        lo = np.floor(src).astype(np.int64)
+        frac = (src - lo).astype(np.float32)
+        return np.clip(lo, 0, n_in - 1), np.clip(lo + 1, 0, n_in - 1), frac
+
+    y0, y1, fy = axis_weights(h, out_h)
+    x0, x1, fx = axis_weights(w, out_w)
+    top, bot = frames[:, y0], frames[:, y1]
+    fr = top + (bot - top) * fy[None, :, None, None]
+    left, right = fr[:, :, x0], fr[:, :, x1]
+    return left + (right - left) * fx[None, None, :, None]
 
 
 def resize_keep_ratio(size: int, image_hw: Tuple[int, int],
@@ -107,15 +135,36 @@ def _compose_affine(ops: List[tuple], src_hw: Tuple[int, int]):
     return (ay, by, ax, bx), cur
 
 
+def apply_pixels(frames: np.ndarray, plan: TransformPlan) -> np.ndarray:
+    """The plan's op chain replayed on host frames [T, H, W, C] (float32 or
+    uint8; a resize makes them float32): flip, then each resize and crop in
+    turn. The card resamples once along ``plan.affine`` instead: the same
+    pixels for one resize, within a smoothing difference for the train
+    branch's resize -> crop -> resize."""
+    if plan.flip:
+        frames = frames[:, :, ::-1]
+    for op in plan.ops:
+        if op[0] == "resize":
+            frames = bilinear_resize(np.asarray(frames, np.float32), op[1], op[2])
+        else:
+            top, left, ch, cw = op[1], op[2], op[3], op[4]
+            frames = frames[:, top: top + ch, left: left + cw]
+    return np.ascontiguousarray(frames)
+
+
 class VideoTransform:
-    """The train or eval transform plan of a clip."""
+    """The train or eval transform plan of a clip; called on a sample, it
+    also does the plan's pixel work on the host."""
 
     def __init__(self, resolution: int, is_train: bool = False, aug_scale: bool = True,
-                 flip_prob: float = 0.5, max_size: int = 720, aug_crop: bool = True):
+                 flip_prob: float = 0.5, max_size: int = 720, mean: np.ndarray = IMAGENET_MEAN,
+                 std: np.ndarray = IMAGENET_STD, aug_crop: bool = True):
         self.resolution = resolution
         self.is_train = is_train
         self.flip_prob = flip_prob
         self.max_size = max_size
+        self.mean = mean
+        self.std = std
         self.aug_crop = aug_crop
         self.scales = ([resolution - 32 * i for i in range(4) if resolution - 32 * i > 0]
                        if aug_scale else [resolution])
@@ -177,8 +226,25 @@ class VideoTransform:
         return TransformPlan(src_hw=(h, w), flip=flip, ops=ops, out_hw=out_hw,
                              affine=affine), boxes, text
 
+    def __call__(self, sample: Dict, rng: Optional[np.random.Generator] = None) -> Dict:
+        """The host pixel path of a sample with float32 ``frames`` [T, H, W,
+        3] in [0, 1], ``boxes`` (xyxy pixels) and ``text``: plan, replay the
+        plan on the frames, normalise them, and set ``boxes``, ``text`` and
+        ``boxes_cxcywh`` (normalised to the output size). Returns the
+        sample, updated in place."""
+        plan, boxes, text = self.plan(sample["frames"].shape[1:3], sample["boxes"],
+                                      sample["text"], rng)
+        frames = apply_pixels(sample["frames"], plan)
+        sample["frames"] = (np.asarray(frames, np.float32) - self.mean) / self.std
+        sample["boxes"] = boxes
+        sample["text"] = text
+        sample["boxes_cxcywh"] = boxes_to_normalized_cxcywh(boxes, plan.out_hw)
+        return sample
+
 
 def build_transforms(cfg, is_train: bool = False) -> VideoTransform:
     return VideoTransform(resolution=cfg.INPUT.RESOLUTION, is_train=is_train,
                           aug_scale=cfg.INPUT.AUG_SCALE, flip_prob=cfg.INPUT.FLIP_PROB_TRAIN,
+                          mean=np.asarray(cfg.INPUT.PIXEL_MEAN, np.float32),
+                          std=np.asarray(cfg.INPUT.PIXEL_STD, np.float32),
                           aug_crop=cfg.INPUT.AUG_CROP)

@@ -109,7 +109,7 @@ def to_host(tensors) -> List[np.ndarray]:
 
 def do_eval(cfg, model, loader, evaluator, logger=None):
     """A full evaluation pass of ``model`` (on its device) over ``loader``'s
-    raw batches; returns ``evaluator.summarize()``.
+    batches (raw, or host-transformed); returns ``evaluator.summarize()``.
 
     Both streams of a batch go through one stacked forward. With
     TPU.EVAL_DEVICE_SPLIT the batch crosses to the device unsplit and the

@@ -6,7 +6,8 @@
     step = make_train_step(cfg, model, opt)
     losses = step(state, raw_batch, targets, torch.Generator("cuda").manual_seed(s))
 
-One step: the batch (a RawVideoBatch goes through ``ops/preprocess.py``)
+One step: the batch (a RawVideoBatch, rgb or yuv420, goes through
+``ops/preprocess.py``; the host path's VideoBatch is used as it comes)
 splits into TPU.GRAD_ACCUM microbatches of consecutive clips; each runs the
 model in training mode and the loss, divided by GRAD_ACCUM, and adds its
 gradients. All microbatches share ``num_boxes = max(GT boxes / B, 1)`` of the
@@ -137,11 +138,12 @@ def eval_device_split_active(cfg) -> bool:
 def make_eval_forward(cfg, model: nn.Module, device_split: Optional[bool] = None
                       ) -> Callable[[object], Dict[str, torch.Tensor]]:
     """fwd(batch) -> the postprocess inputs {"pred_boxes", "pred_sted"} of a
-    raw batch on the model's device, in inference mode. With the device
-    split (``device_split`` None: ``eval_device_split_active(cfg)``) the
-    batch arrives unsplit, is split into its even and odd streams and
-    stacked here, and the split frame mask is returned as "frame_valid";
-    without it the batch arrives stacked (serve.py, the host split)."""
+    batch (raw, or the host path's VideoBatch) on the model's device, in
+    inference mode. With the device split (``device_split`` None:
+    ``eval_device_split_active(cfg)``) the batch arrives unsplit, is split
+    into its even and odd streams and stacked here, and the split frame mask
+    is returned as "frame_valid"; without it the batch arrives stacked
+    (serve.py, the host split)."""
     split = eval_device_split_active(cfg) if device_split is None else bool(device_split)
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
 

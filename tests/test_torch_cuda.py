@@ -17,6 +17,8 @@ inputs their CUDA-core kernels; attention with Sq < 8 takes the row kernels
 in either dtype.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -732,3 +734,73 @@ def test_serve_cli_round_trip_on_card(dev):
     assert got["span"] == list(want["span"])
     for fid, box in want["boxes"].items():
         np.testing.assert_allclose(got["boxes"][str(fid)], box, atol=0.5, rtol=0)
+
+
+def _yuv_raw(seed, flips, sizes):
+    """A yuv420 raw batch (numpy) of coloured clips of the given (t, h, w)
+    (odd sizes allowed) with eval plans and the given flips."""
+    from stcat_tpu_torch.data.batching import build_raw_batch
+    from stcat_tpu_torch.data.decode import rgb_to_yuv420
+    from stcat_tpu_torch.data.tokenize import HashTokenizer
+    from stcat_tpu_torch.data.transforms import VideoTransform
+
+    rng = np.random.RandomState(seed)
+    samples = []
+    for i, ((t, h, w), flip) in enumerate(zip(sizes, flips)):
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        rgb = np.stack([60 + 2 * xx, 40 + 3 * yy, 120 + xx - yy], -1)[None] \
+            + rng.randint(-20, 21, (t, h, w, 3))
+        y, cbcr = rgb_to_yuv420(np.clip(rgb, 0, 255).astype(np.uint8))
+        plan, _, text = VideoTransform(64).plan((h, w), np.zeros((0, 4), np.float32), f"c {i}")
+        samples.append({"frames_y": y, "frames_cbcr": cbcr, "text": text,
+                        "plan": dataclasses.replace(plan, flip=flip)})
+    return build_raw_batch(samples, max(t for t, _, _ in sizes), HashTokenizer(128), 8)[0]
+
+
+def test_yuv_preprocess_on_card_matches_cpu(dev):
+    """The yuv420 branch of preprocess (flip, luma and chroma resample, the
+    BT.601 conversion, normalise, masks) on the card against the same
+    function on the CPU at atol 1e-5, flipped and unflipped clips of odd
+    sizes; TF32 is off, so both sum in fp32."""
+    from stcat_tpu_torch.core.batch import to_device
+    from stcat_tpu_torch.ops.preprocess import preprocess
+
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    raw = _yuv_raw(0, [True, False, True], [(5, 37, 53), (4, 240, 320), (5, 63, 35)])
+    got = preprocess(to_device(raw, dev), mean, std)
+    want = preprocess(to_device(raw, torch.device("cpu")), mean, std)
+    assert got.frames.device.type == dev.type
+    np.testing.assert_allclose(got.frames.cpu().numpy(), want.frames.numpy(), atol=1e-5, rtol=0)
+    assert torch.equal(got.pixel_valid.cpu(), want.pixel_valid)
+
+
+def test_host_path_eval_frames_match_the_device_rgb_path(dev, tmp_path):
+    """The same synthetic test split through the loader twice: with
+    TPU.DEVICE_PREPROCESS false (the host replays each clip's eval resize on
+    float32 frames) and with the raw rgb path, whose batch crosses through
+    prefetch_to_device and is preprocessed on the card. The frames agree at
+    atol 5e-4 (normalised units; tests/test_device_preprocess.py's eval
+    tolerance), the masks exactly; the host batch's float32 frames cross
+    through the prefetch too."""
+    from stcat_tpu_torch.config import merge_from_list
+    from stcat_tpu_torch.core.prefetch import prefetch_to_device
+    from stcat_tpu_torch.data.loader import Loader
+    from stcat_tpu_torch.data.synthetic import SyntheticDataset, write_synthetic_cache
+    from stcat_tpu_torch.ops.preprocess import preprocess
+
+    write_synthetic_cache(str(tmp_path), "VidSTG", "test", n_items=3, n_frames=10,
+                          vary_geometry=True)
+    base = tiny_cfg(["DATA_DIR", str(tmp_path), "INPUT.RESOLUTION", 64,
+                     "INPUT.MAX_QUERY_LEN", 12, "TPU.FRAME_BUCKETS", "[16]"])
+    host_cfg = merge_from_list(base, ["TPU.DEVICE_PREPROCESS", "false"])
+    host = list(Loader(host_cfg, SyntheticDataset(host_cfg, "test"), 1, False))
+    raw = list(Loader(base, SyntheticDataset(base, "test"), 1, False))
+    assert len(host) == len(raw) == 3
+    for (hb, _, _), (rb, _, _) in zip(prefetch_to_device(iter(host), dev),
+                                      prefetch_to_device(iter(raw), dev)):
+        assert hb.frames.device.type == dev.type and hb.frames.dtype == torch.float32
+        got = preprocess(rb, base.INPUT.PIXEL_MEAN, base.INPUT.PIXEL_STD)
+        assert got.frames.shape == hb.frames.shape
+        np.testing.assert_allclose(got.frames.cpu().numpy(), hb.frames.cpu().numpy(),
+                                   atol=5e-4, rtol=0)
+        assert torch.equal(got.pixel_valid, hb.pixel_valid)

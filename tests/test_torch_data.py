@@ -207,9 +207,9 @@ def test_train_loader_matches_jax_with_resume(tmp_path, monkeypatch, materialize
     items in batches of 2, so each epoch ends in a wrap-around row): the raw
     batches, targets and meta equal the JAX Loader's, field for field; a
     loader resumed at start_iter 3 gives the uninterrupted run's batches
-    from the fourth on. Frames are rendered, or decoded through PIL from the
-    JPEG corpus on both sides (the JAX side's native libjpeg decoder turned
-    off here)."""
+    from the fourth on. Frames are rendered, or decoded from the JPEG corpus:
+    by the port's native libjpeg decoder and by PIL on the JAX side (its
+    native decoder turned off here), which give the same pixels."""
     jcfg = _loader_cfg(tmp_path, "VidSTG")
     pcfg = port_cfg(jcfg)
     jsyn.write_synthetic_cache(str(tmp_path), "VidSTG", "train", n_items=7, n_frames=20)
@@ -300,20 +300,27 @@ def test_eval_loader_matches_jax_with_pads_and_grouping(tmp_path, dataset):
 
 
 def test_loader_refuses_what_the_port_does_not_ingest(tmp_path):
-    """The host pixel path and the yuv420 ingest are not ported: the loader
-    says so instead of building other batches."""
+    """An ingest layout other than rgb and yuv420 is refused with the JAX
+    Loader's message (tests/test_yuv_ingest.py::test_bad_layout_rejected),
+    on both sides; the two layouts the port ingests are taken."""
     psyn.write_synthetic_cache(str(tmp_path), "VidSTG", "train", n_items=2)
-    for opts, what in ((["TPU.DEVICE_PREPROCESS", "false"], "DEVICE_PREPROCESS"),
-                       (["TPU.INGEST_LAYOUT", "yuv420"], "INGEST_LAYOUT")):
-        cfg = port_cfg(merge_from_list(_loader_cfg(tmp_path, "VidSTG"), opts))
-        with pytest.raises(NotImplementedError, match=what):
-            make_loader(cfg, psyn.SyntheticDataset(cfg, "train"), "train")
+    jcfg = merge_from_list(_loader_cfg(tmp_path, "VidSTG"), ["TPU.INGEST_LAYOUT", "nv12"])
+    cfg = port_cfg(jcfg)
+    with pytest.raises(ValueError, match="INGEST_LAYOUT") as port_err:
+        make_loader(cfg, psyn.SyntheticDataset(cfg, "train"), "train")
+    with pytest.raises(ValueError, match="INGEST_LAYOUT") as jax_err:
+        JLoader(jcfg, jsyn.SyntheticDataset(jcfg, "train"), global_batch=1, is_train=True)
+    assert str(port_err.value) == str(jax_err.value)
+    for layout in ("rgb", "yuv420"):
+        cfg = port_cfg(merge_from_list(jcfg, ["TPU.INGEST_LAYOUT", layout]))
+        assert make_loader(cfg, psyn.SyntheticDataset(cfg, "train"), "train").raw
 
 
 def test_build_dataset_reads_the_benchmark_layout(tmp_path, monkeypatch):
     """build_dataset for a benchmark name reads its cache, samples and
     plans like the JAX dataset and takes its frames from DATA_DIR/frame/<vid>
-    (PIL on both sides); another dataset name is refused."""
+    (the port's native decoder, PIL on the JAX side); another dataset name
+    is refused."""
     from stcat_tpu.data.datasets import build_dataset as jbuild
     import stcat_tpu.data.jpeg_decode as jjpeg
 

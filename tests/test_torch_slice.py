@@ -26,8 +26,9 @@ def test_train_matches_jax_train(tmp_path, monkeypatch):
     """train() for 3 iterations (two epochs of 2 batches of 2 clips, cut at
     3; checkpoints at 2 and 3) from a reference .pth MODEL.WEIGHT, every
     dropout 0, against the JAX package's train() from the same file on the
-    same synthetic data (its JPEG corpus decoded through PIL on both sides,
-    the JAX side's native libjpeg decoder turned off here): parameters and
+    same synthetic data (its JPEG corpus decoded by the port's native
+    libjpeg decoder and by PIL on the JAX side, its native decoder turned
+    off here: the same pixels): parameters and
     EMA at atol 2e-4 / rtol 1e-3 (the model-parity tolerance). SGD: the update is proportional to the
     gradient, so the tolerance holds the gradients through the whole loop
     (Adam's first steps move every element by about +-LR whatever its
