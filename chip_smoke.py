@@ -76,10 +76,28 @@ Phases (any failure exits non-zero; no phase's error is caught):
      microbatch, K2 none in validation, metrics in [0, 1]; bytes per batch
      crossing to the card, data and step time, peak card memory and host
      RSS, and the decoder route of every clip.
+  9. distribution, the training phase's recipe with every dropout 0 on a
+     4-clip global batch:
+     the single-process step and EMA-validation forwards (fp32 and bf16),
+     the same again from the same seed (the bf16 forward's run-to-run
+     spread, read beside its distance from the fp32 one), then data 2,
+     model 2 and seq 2 (MESH_SEQ 2, SEQUENCE_PARALLEL), each as two ranks
+     on this card over gloo (NCCL refuses two ranks on one device; gloo
+     stages card tensors through host memory, so these steps cannot run
+     under the sync check): one train step per layout held to the
+     single-process one (loss and group gradient norms at the training
+     phase's tolerances), model 2 and seq 2 also the EMA-validation forward
+     in fp32 (held to DIST_FWD_TOL) and in bf16 (read beside the spread),
+     K1 = K2 = 48 and K3 = 60 launches per rank;
+     per rank the step time, peak card memory (seq 2 below the single
+     process's) and each collective's calls and bytes; then a world of one
+     over NCCL takes the data-parallel step, held to the single-process one,
+     and a second step under the sync check.
 Every phase prints its seconds. The line before the last is a JSON object
 listing every kernel's numbers, with its launches on each phase's path
-(launches_by_path: serving, training, loop, cli, lstm, inputs); the last
-line is the device record.
+(launches_by_path: serving, training, loop, cli, lstm, inputs, distributed;
+distributed_launches_per_rank by layout); the last line is the device
+record.
 """
 
 from __future__ import annotations
@@ -160,6 +178,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # weights (relative to max |plain|). Starting points: test_full_parity.py's
 # bf16 envelope (1.5e-2 boxes, 8e-2 sted).
 SERVE_TOL = {"pred_boxes": 1.5e-2, "pred_sted": 8e-2}
+# phase 9: a layout's fp32 EMA-validation forward against one process's,
+# |a - b| <= atol + rtol |b| elementwise (tests/test_torch_distributed.py's
+# bound for the same comparison at tiny widths)
+DIST_FWD_TOL = {"atol": 2e-4, "rtol": 1e-3}
 # one training forward+backward from the initial state, kernels vs plain
 # versions, cuDNN deterministic (the kernels' repeat matched bitwise): the
 # loss (relative), each optimizer group's gradient norm (relative) and each
@@ -548,13 +570,16 @@ def serve_phase():
     return launches
 
 
-def _train_batch(cfg):
-    """Two seeded 64-frame 320x240 uint8 clips, each with a seeded GT span,
-    boxes (normalized cxcywh) and a sentence, through build_raw_batch."""
+TRAIN_TEXTS = ("the man in a red shirt walks left", "a dog jumps over the fence")
+
+
+def _train_batch(cfg, texts=TRAIN_TEXTS):
+    """Seeded 64-frame 320x240 uint8 clips, one per sentence, each with a
+    seeded GT span and boxes (normalized cxcywh), through build_raw_batch."""
     rng = np.random.RandomState(1)
     transform = build_transforms(cfg)
     samples = []
-    for text in ("the man in a red shirt walks left", "a dog jumps over the fence"):
+    for text in texts:
         s = rng.randint(0, TRAIN_FRAMES // 2)
         e = rng.randint(s + 1, TRAIN_FRAMES)
         actioness = np.zeros(TRAIN_FRAMES, np.float32)
@@ -569,12 +594,6 @@ def _train_batch(cfg):
     raw, targets, _ = build_raw_batch(samples, TRAIN_FRAMES, build_tokenizer(cfg),
                                       cfg.INPUT.MAX_QUERY_LEN)
     return raw, targets
-
-
-def _group_grad_norms(opt):
-    return {g["name"]: torch.sqrt(sum((p.grad.float() ** 2).sum() for p in g["params"]
-                                      if p.grad is not None)).item()
-            for g in opt.core.param_groups}
 
 
 def _k2_leaf(name: str) -> bool:
@@ -617,7 +636,7 @@ def compare_step(cfg, model, opt, raw, targets) -> None:
             with plain_kernels() if label == "plain" else contextlib.nullcontext():
                 losses = accumulate_grads(cfg, model, opt, raw, targets,
                                           torch.Generator(device="cuda").manual_seed(1))
-            runs[label] = (losses["loss"].item(), _group_grad_norms(opt),
+            runs[label] = (losses["loss"].item(), opt.grad_norms(),
                            {n: named[n].grad.detach().clone() for n in leaves})
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
@@ -1448,6 +1467,262 @@ def inputs_phase(tmp):
     return launches
 
 
+# phase 9: the distribution layouts, two ranks on one card over gloo (NCCL
+# refuses two ranks on one device), then a world of one over the default backend
+DIST_LAYOUTS = {
+    "data 2": [],
+    "model 2": ["TPU.MODEL_PARALLEL", "2"],
+    "seq 2": ["TPU.MESH_SEQ", "2", "TPU.SEQUENCE_PARALLEL", "true"],
+}
+DIST_TEXTS = TRAIN_TEXTS + ("a child holds a ball", "the woman rides a bicycle")
+
+
+def dist_cfg(*opts):
+    """Phase 9's recipe: the training phase's (full width, GRAD_ACCUM 2) with
+    every dropout 0 (a data rank draws its own masks, so only a dropout-free
+    step can equal the single-process one), plus a layout's TPU overrides."""
+    return recipe_cfg("MODEL.STCAT.DROPOUT", "0.0", "MODEL.STCAT.HEAD_DROPOUT", "0.0",
+                      "MODEL.TEXT_MODEL.DROPOUT", "0.0", "TPU.GRAD_ACCUM", str(ACCUM),
+                      "SOLVER.WARMUP_PROP", "0.0", *opts)
+
+
+def _dist_step(cfg, model, opt, state, raw, targets, gen) -> dict:
+    """One train step of (this rank's part of) the global batch, split so
+    that the accumulated gradients' group norms are read before the update:
+    {losses, grad norms, seconds, peak GiB, launches, collective traffic}."""
+    from stcat_tpu_torch.core.collectives import TRAFFIC
+    from stcat_tpu_torch.train.optimizer import ema_update
+
+    for counter in (kattn.LAUNCHES, kattn.BWD_LAUNCHES, kbottle.LAUNCHES):
+        counter.reset()
+    TRAFFIC.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    losses = accumulate_grads(cfg, model, opt, raw, targets, gen)
+    norms = opt.grad_norms()
+    opt.step()
+    ema_update(state.ema, model, cfg.MODEL.EMA_DECAY)
+    state.step += 1
+    losses = {k: v.item() for k, v in losses.items()}
+    torch.cuda.synchronize()
+    return {"losses": losses, "norms": norms, "seconds": time.time() - t,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": _counts(),
+            "traffic": TRAFFIC.summary()}
+
+
+def _ema_forward(cfg, state, raw, mesh=None, dtype="float32") -> dict:
+    """The EMA weights' eval forward (validation's) on this rank's part of a
+    global raw batch, computing in ``dtype``: boxes and sted of its clips on
+    every frame, and the K1/K2/K3 launches."""
+    from stcat_tpu_torch.core.mesh import shard_batch
+    from stcat_tpu_torch.train.loop import _copy_weights
+    from stcat_tpu_torch.train.step import make_eval_forward
+
+    cfg = merge_from_list(cfg, ["TPU.COMPUTE_DTYPE", dtype])
+    model = build_model(cfg, DEVICE, seed=0, mesh=mesh)
+    _copy_weights(model, state)
+    for counter in (kattn.LAUNCHES, kattn.BWD_LAUNCHES, kbottle.LAUNCHES):
+        counter.reset()
+    out = make_eval_forward(cfg, model, device_split=False)(
+        to_device(shard_batch(raw, mesh), model.input_proj.weight.device))
+    res = {k: out[k].float().cpu() for k in ("pred_boxes", "pred_sted")}
+    res["launches"] = _counts()
+    return res
+
+
+def _ema_forwards(cfg, state, raw, mesh=None) -> dict:
+    """The EMA-validation forward in fp32 (held to one process's) and in the
+    recipe's dtype (read beside one process's own run-to-run spread)."""
+    return {dt: _ema_forward(cfg, state, raw, mesh, dt)
+            for dt in ("float32", cfg.TPU.COMPUTE_DTYPE)}
+
+
+def dist_rank(rank, cfg, raw, targets, sync_check=False) -> dict:
+    """One rank of a layout (spawned by core.dist.spawn_ranks, its process
+    group joined): its part of the global batch, one train step, under model
+    or seq parallelism the EMA-validation forward, and with ``sync_check``
+    one more step enqueued with every host wait an error (NCCL: gloo stages
+    through host memory)."""
+    from stcat_tpu_torch.core.mesh import mesh_from_config, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_from_config(cfg)
+    model = build_model(cfg, DEVICE, seed=0, mesh=mesh)
+    opt = make_optimizer(cfg, model, num_training_steps=1000)
+    state = create_train_state(cfg, model, opt)
+    dev = model.input_proj.weight.device
+    part, part_targets = (to_device(shard_batch(x, mesh), dev) for x in (raw, targets))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res = _dist_step(cfg, model, opt, state, part, part_targets, gen)
+    res.update(rank=rank, coords=mesh.coords, backend=torch.distributed.get_backend())
+    if mesh.model_parallel > 1 or mesh.seq_parallel > 1:
+        res["eval"] = _ema_forwards(cfg, state, raw, mesh)
+        n = len(raw.flip) // mesh.data_parallel  # this data rank's clips
+        res["rows"] = (mesh.data_index * n, (mesh.data_index + 1) * n)
+    if sync_check:
+        torch.cuda.synchronize()
+        before = _counts()
+        t = time.time()
+        with no_host_waits():
+            losses = make_train_step(cfg, model, opt, device=dev)(state, part, part_targets, gen)
+        loss = losses["loss"].item()
+        res["sync_step"] = {"seconds": time.time() - t, "loss": loss,
+                            "launches": _launched(before)}
+    return res
+
+
+def _check_rank(label, got, ref, want_launches) -> None:
+    tol = STEP_TOL[dist_cfg().TPU.COMPUTE_DTYPE]
+    rel = abs(got["losses"]["loss"] - ref["losses"]["loss"]) / abs(ref["losses"]["loss"])
+    worst = max(abs(got["norms"][g] - n) / max(n, 1e-30) for g, n in ref["norms"].items())
+    traffic = ", ".join(f"{op} {v['calls']} x, {v['bytes'] / 2**20:.1f} MiB"
+                        for op, v in got["traffic"].items())
+    print(f"    rank {got['rank']} {got['coords']}: step {got['seconds']:.3f} s, peak "
+          f"{got['peak_gib']:.2f} GiB, launches {got['launches']}; loss {got['losses']['loss']:.6f}"
+          f" (rel {rel:.3e}, tol {tol['loss']}), group grad norms max rel {worst:.3e} (tol "
+          f"{tol['grad_norm']}); collectives: {traffic}")
+    if not rel <= tol["loss"] or not worst <= tol["grad_norm"]:
+        raise AssertionError(f"{label} rank {got['rank']}: loss rel {rel:.3e}, grad norms "
+                             f"rel {worst:.3e} against the single-process step")
+    if got["launches"] != want_launches:
+        raise AssertionError(f"{label} rank {got['rank']}: launches {got['launches']}, "
+                             f"expected {want_launches}")
+    if "eval" in got:
+        rows = slice(*got["rows"])
+        for dt, ev in got["eval"].items():
+            for key in ("pred_boxes", "pred_sted"):
+                want = ref["eval"][dt][key][rows]
+                err, rel_v = rel_err(ev[key], want)
+                if dt == "float32":
+                    ratio = ((ev[key] - want).abs()
+                             / (DIST_FWD_TOL["atol"] + DIST_FWD_TOL["rtol"] * want.abs())).max().item()
+                    print(f"      EMA-validation forward (fp32) {key}: max_abs_err {err:.3e} rel "
+                          f"{rel_v:.3e}; worst |a-b| / (atol + rtol |b|) {ratio:.3f} (held to "
+                          f"<= 1: {DIST_FWD_TOL})")
+                    if not ratio <= 1.0:
+                        raise AssertionError(f"{label} rank {got['rank']}: fp32 EMA forward {key} "
+                                             f"differs from the single-process one by {err:.3e}")
+                else:
+                    again = ref["rerun"][key]
+                    print(f"      EMA-validation forward ({dt}) {key}: max_abs_err {err:.3e} rel "
+                          f"{rel_v:.3e} (read, not held; one process against itself "
+                          f"{again[0]:.3e} / {again[1]:.3e})")
+            if min(ev["launches"]["flash_attention"], ev["launches"]["fused_bottleneck"]) <= 0 \
+                    or ev["launches"]["flash_attention_bwd"]:
+                raise AssertionError(f"{label}: EMA forward ({dt}) launches {ev['launches']}")
+
+
+def _rerun_spread(cfg, raw, targets, ref) -> dict:
+    """One process's step and EMA-validation forward in the recipe's dtype
+    again, from the same seed: how far the forward moves with nothing but
+    the run changed (the backward is not bitwise repeatable, and a weight a
+    hair's breadth from a rounding boundary rounds the other way), beside
+    how far the same weights' forward is from its fp32 one. The step's loss
+    must repeat within STEP_TOL."""
+    dt = cfg.TPU.COMPUTE_DTYPE
+    model = build_model(cfg, DEVICE, seed=0)
+    opt = make_optimizer(cfg, model, num_training_steps=1000)
+    state = create_train_state(cfg, model, opt)
+    dev = model.input_proj.weight.device
+    again = _dist_step(cfg, model, opt, state, to_device(raw, dev), to_device(targets, dev),
+                       torch.Generator(device=dev).manual_seed(1))
+    fwd = _ema_forward(cfg, state, raw, dtype=dt)
+    del model, opt, state
+    torch.cuda.empty_cache()
+    rel = abs(again["losses"]["loss"] - ref["losses"]["loss"]) / abs(ref["losses"]["loss"])
+    out = {k: rel_err(fwd[k], ref["eval"][dt][k]) for k in ("pred_boxes", "pred_sted")}
+    to32 = {k: rel_err(ref["eval"][dt][k], ref["eval"]["float32"][k]) for k in out}
+    print(f"  single process again from the same seed: loss rel {rel:.3e} (tol "
+          f"{STEP_TOL[dt]['loss']}); its {dt} EMA forward against the first run's: "
+          + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}" for k, (e, r) in out.items())
+          + f"; the first run's {dt} forward against its fp32 one: "
+          + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}" for k, (e, r) in to32.items()))
+    if not rel <= STEP_TOL[dt]["loss"]:
+        raise AssertionError(f"the single-process step does not repeat: loss rel {rel:.3e}")
+    return out
+
+
+def dist_reference(cfg, raw, targets) -> dict:
+    """Phase 9's reference: one process's step from the seeded weights, its
+    EMA-validation forwards, and its run-to-run spread (``_rerun_spread``)."""
+    t0 = time.time()
+    model = build_model(cfg, DEVICE, seed=0)
+    opt = make_optimizer(cfg, model, num_training_steps=1000)
+    state = create_train_state(cfg, model, opt)
+    dev = model.input_proj.weight.device
+    ref = _dist_step(cfg, model, opt, state, to_device(raw, dev), to_device(targets, dev),
+                     torch.Generator(device=dev).manual_seed(1))
+    ref["eval"] = _ema_forwards(cfg, state, raw)
+    print(f"  single process: step {ref['seconds']:.3f} s, peak {ref['peak_gib']:.2f} GiB, "
+          f"loss {ref['losses']['loss']:.6f}, launches {ref['launches']} (built and stepped in "
+          f"{time.time() - t0:.1f} s)")
+    del model, opt, state
+    torch.cuda.empty_cache()
+    ref["rerun"] = _rerun_spread(cfg, raw, targets, ref)
+    return ref
+
+
+def dist_phase() -> dict:
+    """The distribution layouts at full width (the training phase's recipe,
+    a 4-clip global batch of 64-frame clips, GRAD_ACCUM 2): the
+    single-process step and EMA-validation forward first, then each gloo
+    layout's ranks on this card, each held to them; then one step of a
+    world of one over the card's default backend (NCCL) under the sync
+    check. Returns each kernel's launches per rank of every layout."""
+    from stcat_tpu_torch.core.dist import default_backend, spawn_ranks
+
+    cfg = dist_cfg()
+    raw, targets = _train_batch(cfg, DIST_TEXTS)
+    print(f"  global batch: {len(DIST_TEXTS)} clips x {TRAIN_FRAMES} frames on "
+          f"{raw.out_canvas}, GRAD_ACCUM {ACCUM}; spans {targets.temp_bound.tolist()}")
+    ref = dist_reference(cfg, raw, targets)
+    # per rank: every layout runs 2 microbatches of its clips
+    want = {"flash_attention": K1_PER_MICROBATCH * ACCUM,
+            "flash_attention_bwd": K1_PER_MICROBATCH * ACCUM,
+            "fused_bottleneck": K3_PER_MICROBATCH * ACCUM}
+    if ref["launches"] != want:
+        raise AssertionError(f"single-process launches {ref['launches']}, expected {want}")
+
+    per_rank = {}
+    print("  gloo layouts, two ranks on one card (the sync check cannot run here: gloo "
+          "stages every card tensor through host memory, a host wait per collective)")
+    one_card = "cuda:0" if DEVICE == "cuda" else DEVICE  # both ranks on this card
+    for label, opts in DIST_LAYOUTS.items():
+        t0 = time.time()
+        ranks = spawn_ranks(dist_rank, 2, (dist_cfg(*opts), raw, targets), backend="gloo",
+                            device=one_card, timeout_s=600)
+        print(f"  {label} ({ranks[0]['backend']}): {time.time() - t0:.1f} s with start-up")
+        for got in ranks:
+            _check_rank(label, got, ref, want)
+        if label == "seq 2" and not max(r["peak_gib"] for r in ranks) < ref["peak_gib"]:
+            raise AssertionError(f"seq 2 peak {[r['peak_gib'] for r in ranks]} GiB not below "
+                                 f"the single process's {ref['peak_gib']:.2f}")
+        per_rank[label] = [r["launches"] for r in ranks]
+
+    backend = default_backend(DEVICE)
+    t0 = time.time()
+    (one,) = spawn_ranks(dist_rank, 1, (dist_cfg(), raw, targets, True), backend=backend,
+                         device=DEVICE, timeout_s=600)
+    print(f"  world of one over {one['backend']} (the data-parallel step's box count, gradient "
+          f"and loss all-reduces): {time.time() - t0:.1f} s with start-up")
+    _check_rank("world of one", one, ref, want)
+    check_sync_step("world of one", one, want)
+    per_rank[f"world of one ({backend})"] = [one["launches"]]
+    return per_rank
+
+
+def check_sync_step(label, got, want_launches) -> None:
+    """The rank's second step, enqueued under set_sync_debug_mode("error")."""
+    sync = got["sync_step"]
+    print(f"    rank {got['rank']}: second step under set_sync_debug_mode('error') ran without a "
+          f"host wait: {sync['seconds']:.3f} s, loss {sync['loss']:.6f}, launches "
+          f"{sync['launches']}")
+    if sync["launches"] != want_launches or not np.isfinite(sync["loss"]):
+        raise AssertionError(f"{label} rank {got['rank']}: sync-checked step {sync}")
+
+
 def lstm_phase():
     """MODEL.USE_LSTM true (GloVe-sized embedding, 2 bi-LSTM layers of 256
     per direction) at full width otherwise: one served batch through
@@ -1588,6 +1863,13 @@ def main() -> int:
     t0 = time.time()
     lstm = lstm_phase()
     print(f"LSTM phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("distributed at full width (data 2, model 2, seq 2 over gloo on this card; a world "
+          "of one over NCCL):")
+    t0 = time.time()
+    dist = dist_phase()
+    print(f"distributed phase took {time.time() - t0:.1f} s")
 
     per_fwd = ("bf16 CUDA-event times summed over one served forward's calls at the serving "
                "path's shapes (4 lanes x 64 frames)")
@@ -1604,11 +1886,14 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces, basis) in meta.items():
         t = totals[name]
+        per_rank = {layout: [r[name] for r in ranks] for layout, ranks in dist.items()}
         by_path = {"serving": served[name], "training": trained[name], "loop": looped[name],
-                   "cli": clis[name], "lstm": lstm[name], "inputs": inputs[name]}
+                   "cli": clis[name], "lstm": lstm[name], "inputs": inputs[name],
+                   "distributed": sum(sum(v) for v in per_rank.values())}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "distributed_launches_per_rank": per_rank,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",

@@ -22,7 +22,8 @@ process. ``--max-iters`` takes cli.train's value (it sets the schedule's
 horizon), ``--epochs`` the train epochs to scan (0: SOLVER.MAX_EPOCH; the
 augmentation draws differ per epoch, eval is one pass), ``--mode`` the
 splits, ``--synthetic`` the synthetic dataset. Runs on ``cuda`` unless
-``--device`` names another device.
+``--device`` names another device; under ``torchrun`` each rank scans its
+data rank's shard and runs its part of the mesh cfg.TPU describes.
 """
 
 from __future__ import annotations
@@ -31,11 +32,13 @@ import argparse
 import time
 
 from . import add_common_args, dataset_builder, load_config
+from . import add_dist_args, start
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="STCAT batch-shape warm-up (PyTorch)")
     add_common_args(p)
+    add_dist_args(p)
     p.add_argument("--mode", choices=["train", "eval", "both"], default="both")
     p.add_argument("--epochs", type=int, default=0,
                    help="train epochs to scan (0: SOLVER.MAX_EPOCH, the epochs the run draws)")
@@ -47,13 +50,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def scan(cfg, builder, mode: str, epochs: int, logger) -> dict:
+def scan(cfg, make_dataset, mode: str, epochs: int, logger, mesh=None) -> dict:
     """{split: (loader, {signature: exemplar samples})} of the modes asked for."""
     from ..data.loader import make_loader
 
     out = {}
     for split in {"train": ["train"], "eval": ["test"], "both": ["train", "test"]}[mode]:
-        loader = make_loader(cfg, builder(cfg, split), split)
+        loader = make_loader(cfg, make_dataset(cfg, split), split, mesh=mesh)
         t0 = time.perf_counter()
         sigs = loader.scan_signatures(epochs)
         passes = epochs if split == "train" else 1
@@ -86,17 +89,20 @@ def main(argv=None):
     """The signatures' records, [{"mode", "signature", "seconds",
     "peak_gb"}] (empty with ``--list``)."""
     args = parse_args(argv)
+    from ..core.dist import get_rank
     from ..core.logging import setup_logger
-    from ..ops.misc import resolve_device
+    from ..core.mesh import local_batch, mesh_from_config
 
-    device = resolve_device(args.device)
+    device = start(args)
     cfg = load_config(args.config_file, args.opts)
     if not cfg.TPU.DEVICE_PREPROCESS:
         raise SystemExit("precompile targets the raw (TPU.DEVICE_PREPROCESS) input path; "
                          "host-transform shapes key only on (bucket, resolution)")
-    logger = setup_logger("stcat_tpu_torch.precompile", cfg.OUTPUT_DIR)
+    logger = setup_logger("stcat_tpu_torch.precompile", cfg.OUTPUT_DIR, rank=get_rank())
+    mesh = mesh_from_config(cfg)
+    logger.info(f"mesh: {mesh.size} device(s), shape {dict(mesh.shape)}")
     epochs = args.epochs if args.epochs > 0 else cfg.SOLVER.MAX_EPOCH
-    scanned = scan(cfg, dataset_builder(args.synthetic), args.mode, epochs, logger)
+    scanned = scan(cfg, dataset_builder(args.synthetic), args.mode, epochs, logger, mesh)
     if args.list:
         return []
 
@@ -116,7 +122,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         _build.build_all()
         logger.info(f"kernels built into {_build.BUILD_DIR} in {time.perf_counter() - t0:.1f} s")
-    model = build_model(cfg, device, seed=cfg.SEED)
+    model = build_model(cfg, device, seed=cfg.SEED, mesh=mesh)
     records = []
     if "train" in scanned:
         loader, sigs = scanned["train"]
@@ -130,7 +136,8 @@ def main(argv=None):
         for sig, samples in sorted(sigs.items()):
             def one():
                 batch, targets, _ = loader._make_batch(samples)
-                float(step(state, batch, targets, step_generator(cfg, 0, device))["loss"])
+                float(step(state, local_batch(batch, mesh), local_batch(targets, mesh),
+                           step_generator(cfg, 0, device, mesh.data_index))["loss"])
             records.append(_measured("train", sig, device, one, logger))
 
     if "test" in scanned:
@@ -141,11 +148,12 @@ def main(argv=None):
             def one():
                 batch, _, meta = loader._make_batch(samples)
                 batch, sizes, _, _ = eval_inputs(batch, meta, split)
-                batch, sizes = to_device(batch, device), to_device(sizes, device)
+                batch = to_device(local_batch(batch, mesh), device)
+                sizes = to_device(sizes, device)
                 out = fwd(batch)
                 with torch.inference_mode():
                     res = postprocess(out["pred_boxes"], out["pred_sted"], sizes,
-                                      out["frame_valid"] if split else batch.frame_valid)
+                                      out["frame_valid"])
                 for t in res:
                     t.cpu()
             records.append(_measured("eval", sig, device, one, logger))

@@ -11,7 +11,8 @@ reference-derived weights under the stand-in hash tokenizer. The run
 evaluates on ``cuda`` unless ``--device`` names another device;
 ``--synthetic`` evaluates the rendered synthetic test split (written under
 DATA_DIR on first use). The metrics are logged and returned, and the
-evaluator writes OUTPUT_DIR/test_results.json.
+evaluator writes OUTPUT_DIR/test_results.json. Under ``torchrun`` the
+ranks evaluate on the mesh cfg.TPU describes (``cli/train.py``).
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import argparse
 import os
 
 from . import add_common_args, dataset_builder, load_config
+from . import add_dist_args, start
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="STCAT evaluation (PyTorch)")
     add_common_args(p)
+    add_dist_args(p)
     p.add_argument("--synthetic", action="store_true", help="evaluate the synthetic dataset")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
@@ -38,18 +41,20 @@ def main(argv=None):
     from ..data.loader import make_loader
     from ..data.tokenize import check_tokenizer_for_weights
     from ..eval.engine import do_eval
+    from ..core.mesh import mesh_from_config
     from ..eval.evaluator import build_evaluator
     from ..models import build_model
-    from ..ops.misc import resolve_device
     from ..train.checkpoint import load_weights_for_eval
 
-    device = resolve_device(args.device)
+    device = start(args)
     cfg = load_config(args.config_file, args.opts)
     if cfg.OUTPUT_DIR:  # the evaluator writes test_results.json there
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logger = setup_logger("stcat_tpu_torch", cfg.OUTPUT_DIR, rank=get_rank())
-    model = build_model(cfg, device, seed=cfg.SEED)
-    loader = make_loader(cfg, dataset_builder(args.synthetic)(cfg, "test"), "test")
+    mesh = mesh_from_config(cfg)
+    logger.info(f"mesh: {mesh.size} device(s), shape {dict(mesh.shape)}")
+    model = build_model(cfg, device, seed=cfg.SEED, mesh=mesh)
+    loader = make_loader(cfg, dataset_builder(args.synthetic)(cfg, "test"), "test", mesh=mesh)
     check_tokenizer_for_weights(cfg, loader.tokenizer, cfg.MODEL.WEIGHT, what="evaluation")
     load_weights_for_eval(model, cfg.MODEL.WEIGHT, logger)
     res = do_eval(cfg, model, loader, build_evaluator(cfg, logger, "test"), logger)

@@ -19,8 +19,11 @@
     batches, rgb or yuv420 by TPU.INGEST_LAYOUT, resampled on the card;
     without it the host transforms the pixels and the loader yields
     VideoBatches of normalised float32 frames (``build_batch``).
-The world size and rank come from ``core/dist.py``: each rank loads its own
-shard of every epoch. The host-to-device copy is ``core/prefetch.py``'s.
+On a mesh the global batch is ``BATCH_SIZE x world`` clips, the JAX
+package's ``BATCH_SIZE x mesh size``, sharded over the data ranks as the
+JAX Loader shards it over hosts: every rank of one model or seq group loads
+its data rank's clips (``make_loader``). The host-to-device copy is
+``core/prefetch.py``'s.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.dist import get_rank, get_world_size
+from ..core.dist import get_world_size
 from .batching import build_batch, build_raw_batch, pick_bucket, raw_batch_signature
 from .tokenize import build_tokenizer
 
@@ -205,7 +208,15 @@ class Loader:
         return self._pipelined(load_batch, 0, n_batches)
 
 
-def make_loader(cfg, dataset, mode: str, start_iter: int = 0) -> Loader:
-    """SOLVER.BATCH_SIZE clips per rank; each rank loads its own shard."""
-    return Loader(cfg, dataset, global_batch=cfg.SOLVER.BATCH_SIZE, is_train=(mode == "train"),
-                  start_iter=start_iter, shard_index=get_rank(), num_shards=get_world_size())
+def make_loader(cfg, dataset, mode: str, start_iter: int = 0, mesh=None) -> Loader:
+    """This data rank's loader: SOLVER.BATCH_SIZE x world / data clips per
+    batch, shard ``mesh.data_index`` of ``mesh.data_parallel`` (one process:
+    BATCH_SIZE clips, the only shard)."""
+    if mesh is None and get_world_size() > 1:
+        raise ValueError("several processes load the data of a mesh: "
+                         "make_loader(cfg, dataset, mode, mesh=mesh_from_config(cfg))")
+    world = 1 if mesh is None else mesh.size
+    shards = 1 if mesh is None else mesh.data_parallel
+    return Loader(cfg, dataset, global_batch=cfg.SOLVER.BATCH_SIZE * world // shards,
+                  is_train=(mode == "train"), start_iter=start_iter,
+                  shard_index=0 if mesh is None else mesh.data_index, num_shards=shards)

@@ -18,6 +18,7 @@ import torch
 
 from ..core.batch import stack_streams, subsample_stream
 from ..core.dist import is_main_process, synchronize
+from ..core.mesh import local_batch
 from ..core.prefetch import prefetch_to_device
 from ..models.postprocess import postprocess
 from ..train.step import eval_device_split_active, make_eval_forward
@@ -65,11 +66,15 @@ def _decode_rows(boxes, s_idx, e_idx, frame_valid, meta, row0):
 def merge_two_streams(boxes, s_idx, e_idx, frame_valid, m1, m2):
     """Union the two streams' per-frame boxes, interpolate the gaps, and take
     the min/max envelope of their spans. Rows [0, len(m1)) are stream 0,
-    the next len(m2) rows stream 1."""
+    the next len(m2) rows stream 1. An item whose stream-1 row is padding
+    (a served single-frame clip) keeps its stream-0 prediction."""
     bbox1, temp1 = _decode_rows(boxes, s_idx, e_idx, frame_valid, m1, 0)
     bbox2, temp2 = _decode_rows(boxes, s_idx, e_idx, frame_valid, m2, len(m1))
     bbox_pred, temp_pred = {}, {}
     for vid in bbox1:
+        if vid not in bbox2:
+            bbox_pred[vid], temp_pred[vid] = bbox1[vid], temp1[vid]
+            continue
         bbox1[vid].update(bbox2[vid])
         bbox_pred[vid] = linear_interp_boxes(bbox1[vid])
         temp_pred[vid] = {
@@ -118,14 +123,23 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
     and the results of a batch are read back only once PIPELINE_DEPTH later
     batches are queued behind it, so the host's decoding of one batch
     overlaps the device's work on the next ones. The rows' original sizes
-    cross with their batch, so the host waits for the card only to drain."""
+    cross with their batch, so the host waits for the card only to drain.
+
+    On a mesh each data rank evaluates its loader's shard (the loader pads
+    every shard to the same batch count, so the ranks run the same number
+    of forwards); under sequence parallelism the stacked batch keeps this
+    rank's frames (``mesh.local_batch``). The ranks of one model or seq
+    group compute the same predictions, so only the first of each
+    contributes to the evaluator's gather."""
     fwd = make_eval_forward(cfg, model)
     device_split = eval_device_split_active(cfg)
     device = next(model.parameters()).device
+    mesh = getattr(model, "mesh", None)
 
     def host_side(item):
         batch, _targets, meta = item
-        return eval_inputs(batch, meta, device_split)
+        batch, sizes, m1, m2 = eval_inputs(batch, meta, device_split)
+        return local_batch(batch, mesh), sizes, m1, m2
 
     def drain(item):
         res, fv, m1, m2 = item
@@ -139,7 +153,7 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
     try:
         for batch, sizes, m1, m2 in stream:
             out = fwd(batch)
-            fv = out["frame_valid"] if device_split else batch.frame_valid
+            fv = out["frame_valid"]
             with torch.inference_mode():
                 res = postprocess(out["pred_boxes"], out["pred_sted"], sizes, fv)
             pending.append((res, fv, m1, m2))
@@ -150,7 +164,7 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
     finally:
         stream.close()
     synchronize()
-    evaluator.synchronize_between_processes()
+    evaluator.synchronize_between_processes(contribute=mesh is None or mesh.is_group_leader)
     if logger is not None and is_main_process():
         logger.info("Inference complete; computing metrics")
     return evaluator.summarize()

@@ -80,11 +80,14 @@ class GroundingEvaluator:
         """video_predictions: {item_id: {"sted": [s, e], "qtype": ...}}"""
         self.video_predictions.update(video_predictions)
 
-    def synchronize_between_processes(self) -> None:
-        """Merge predictions across processes (a no-op in one process)."""
+    def synchronize_between_processes(self, contribute: bool = True) -> None:
+        """Merge predictions across processes (a no-op in one process); a
+        rank that does not ``contribute`` (it repeats another rank's
+        predictions) sends none."""
         for merged, ours in (
-            (all_gather_objects(self.predictions), "predictions"),
-            (all_gather_objects(self.video_predictions), "video_predictions"),
+            (all_gather_objects(self.predictions if contribute else {}), "predictions"),
+            (all_gather_objects(self.video_predictions if contribute else {}),
+             "video_predictions"),
         ):
             combined = {}
             for d in merged:

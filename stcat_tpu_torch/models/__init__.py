@@ -1,4 +1,5 @@
-"""STCAT network and its components; ``build_model`` makes a seeded fresh one."""
+"""STCAT network and its components; ``build_model`` makes a seeded fresh one,
+laid out on a mesh (``parallelize``) when it is given one."""
 
 from __future__ import annotations
 
@@ -7,8 +8,9 @@ import math
 import torch
 from torch import nn
 
+from ..core import mesh as meshlib
 from ..ops.misc import resolve_device
-from .attention import MultiHeadAttention
+from .attention import Linear, MultiHeadAttention
 from .lstm_text import LSTMTextEncoder
 from .position2d import PositionEncoding2D
 from .stcat import STCATNet
@@ -50,13 +52,67 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             normal_(mod.weight, std)
 
 
-def build_model(cfg, device=None, seed: int = 0) -> STCATNet:
+def validate_tp(cfg, model_parallel: int) -> None:
+    """The head and hidden widths tensor parallelism splits must divide by
+    the model-parallel size (the JAX step's ``_validate_tp``)."""
+    st, tm = cfg.MODEL.STCAT, cfg.MODEL.TEXT_MODEL
+    for name, val in (
+        ("STCAT.HEADS", st.HEADS),
+        ("STCAT.FFN_DIM", st.FFN_DIM),
+        ("TEXT_MODEL.HEADS", tm.HEADS),
+        ("TEXT_MODEL.INTERMEDIATE", tm.INTERMEDIATE),
+    ):
+        if val % model_parallel:
+            raise ValueError(
+                f"MODEL.{name}={val} not divisible by model-parallel size {model_parallel}"
+            )
+
+
+def min_tp_leaves(cfg) -> int:
+    """Loose lower bound on the model-sharded parameters: every encoder and
+    decoder layer holds at least one column- and one row-parallel weight, so
+    a name-rule drift that drops a whole stack to replication trips
+    ``mesh.sharded_names``' guard."""
+    s = cfg.MODEL.STCAT
+    return 2 * (s.ENC_LAYERS + 2 * s.DEC_LAYERS)
+
+
+@torch.no_grad()
+def parallelize(cfg, model: STCATNet, mesh) -> STCATNet:
+    """Lay a whole model out on ``mesh``, in place: under tensor parallelism
+    each sharded parameter keeps this rank's part (``mesh.tp_rule``) and the
+    tensor-parallel modules their ``tp``, each row-parallel Linear its
+    ``row_parallel``; under sequence parallelism the model gets its
+    ``frame_shard``. Call it before the optimizer sees the parameters."""
+    model.mesh = mesh
+    model.frame_shard = meshlib.frame_shard(mesh)
+    tp = meshlib.model_shard(mesh)
+    if tp is None:
+        return model
+    validate_tp(cfg, tp.parts)
+    rules = meshlib.sharded_names(((n, p.dim()) for n, p in model.named_parameters()),
+                                  min_model_sharded=min_tp_leaves(cfg))
+    for name, p in model.named_parameters():
+        if name in rules:
+            p.data = meshlib.shard_tensor(p.data, rules[name], tp.index, tp.parts)
+    for name, mod in model.named_modules():
+        if hasattr(mod, "tp"):
+            mod.tp = tp
+        if isinstance(mod, Linear) and rules.get(name + ".weight") == (1, 1):
+            mod.row_parallel = tp
+    return model
+
+
+def build_model(cfg, device=None, seed: int = 0, mesh=None) -> STCATNet:
     """A fresh STCATNet on ``device`` (``cuda`` unless "cpu" is asked for),
-    in eval mode, with weights drawn from ``seed``."""
+    in eval mode, with weights drawn from ``seed`` (the same weights on every
+    layout: a mesh's ranks keep their parts of them)."""
     dev = resolve_device(device)
     model = STCATNet(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
+    if mesh is not None:
+        parallelize(cfg, model, mesh)
     return model.to(dev).eval()
 
 
-__all__ = ["STCATNet", "build_model", "init_parameters"]
+__all__ = ["STCATNet", "build_model", "init_parameters", "parallelize"]

@@ -8,7 +8,12 @@ frame t's memory only) is batched attention of [B*T, 1, *] queries against
 training mode dropout applies where the JAX package's decoders draw it: the
 attention weights, each attention output before its residual add, the FFN's
 hidden activation and its output, and after every layer of an MLP built with
-a rate (the temp/action heads').
+a rate (the temp/action heads'). Under tensor parallelism (a layer's ``tp``)
+every sa_* / ca_* pre-projection, attention input projection and linear1 is
+column-parallel, so the per-head concatenation of content and sine stays on
+one rank; the spatial decoder's self-attention (and the pretrained-init
+cross-attention) takes the projected queries, keys and values gathered
+back to full width.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..core.collectives import copy_to, gather
 from ..ops.embeddings import anchor_sine_embedding
 from ..ops.misc import dropout, inverse_sigmoid
-from .attention import Linear, MultiHeadAttention, ProjectionFreeAttention
+from .attention import Linear, MultiHeadAttention, ProjectionFreeAttention, heads_of
+from .encoder import ffn_hidden
 from .roberta import LayerNorm
 
 
@@ -91,50 +98,59 @@ class SpatialDecoderLayer(nn.Module):
         self.norm1 = LayerNorm(d, eps=1e-5)
         self.norm3 = LayerNorm(d, eps=1e-5)
         self.norm4 = LayerNorm(d, eps=1e-5)
+        self.tp = None
 
     def forward(self, tgt, memory, mem_valid, mem_pos, query_pos, query_time,
                 query_sine_embed, frame_valid, generator: Optional[torch.Generator] = None):
         d, h = self.d_model, self.num_heads
+        group = None if self.tp is None else self.tp.group
+        enter = lambda x: copy_to(x, group)  # noqa: E731  (into the column-parallel projections)
+        whole = lambda x: x if group is None else gather(x, group, -1)  # noqa: E731
         drop = lambda x: dropout(x, self.dropout, self.training, generator)  # noqa: E731
-        q = self.sa_qcontent_proj(tgt) + self.sa_qtime_proj(query_time) + self.sa_qpos_proj(query_pos)
-        k = self.sa_kcontent_proj(tgt) + self.sa_ktime_proj(query_time) + self.sa_kpos_proj(query_pos)
-        v = self.sa_v_proj(tgt)
+        tgt_in, time_in, pos_in = enter(tgt), enter(query_time), enter(query_pos)
+        q = self.sa_qcontent_proj(tgt_in) + self.sa_qtime_proj(time_in) + self.sa_qpos_proj(pos_in)
+        k = self.sa_kcontent_proj(tgt_in) + self.sa_ktime_proj(time_in) + self.sa_kpos_proj(pos_in)
+        v = self.sa_v_proj(tgt_in)
         # a weights-returning call (as in stcat_tpu), so it stays on the plain path
-        sa_out, _ = self.self_attn(q, k, v, key_valid=frame_valid, return_weights=True,
-                                   generator=generator)
+        sa_out, _ = self.self_attn(whole(q), whole(k), whole(v), key_valid=frame_valid,
+                                   return_weights=True, generator=generator)
         tgt = self.norm1(tgt + drop(sa_out))
 
         b, t, m, _ = memory.shape
-        q_content = self.ca_qcontent_proj(tgt)
-        k_content = self.ca_kcontent_proj(memory)
-        v_mem = self.ca_v_proj(memory)
-        k_pos = self.ca_kpos_proj(mem_pos)
+        mem_in = enter(memory)
+        q_content = self.ca_qcontent_proj(enter(tgt))
+        k_content = self.ca_kcontent_proj(mem_in)
+        v_mem = self.ca_v_proj(mem_in)
+        k_pos = self.ca_kpos_proj(enter(mem_pos))
         if self.ca_qpos_proj is not None:  # the first layer only
-            q_content = q_content + self.ca_qpos_proj(query_pos)
+            q_content = q_content + self.ca_qpos_proj(pos_in)
             k_content = k_content + k_pos
-        sine = self.ca_qpos_sine_proj(query_sine_embed)
+        sine = self.ca_qpos_sine_proj(enter(query_sine_embed))
         hd = d // h
+        hl = heads_of(h, self.tp)  # this rank's heads
         if self.from_scratch:
-            # per-head concat: [content_h ; pos_h] for q and k -> width 2d
-            qc = torch.cat([q_content.reshape(b, t, h, hd), sine.reshape(b, t, h, hd)], -1)
-            kc = torch.cat([k_content.reshape(b, t, m, h, hd), k_pos.reshape(b, t, m, h, hd)], -1)
+            # per-head concat: [content_h ; pos_h] for q and k -> width 2 * hl * hd
+            qc = torch.cat([q_content.reshape(b, t, hl, hd), sine.reshape(b, t, hl, hd)], -1)
+            kc = torch.cat([k_content.reshape(b, t, m, hl, hd), k_pos.reshape(b, t, m, hl, hd)],
+                           -1)
             ca_out = self.cross_attn(
-                qc.reshape(b * t, 1, 2 * d), kc.reshape(b * t, m, 2 * d),
-                v_mem.reshape(b * t, m, d), key_valid=mem_valid.reshape(b * t, m),
+                qc.reshape(b * t, 1, 2 * hl * hd), kc.reshape(b * t, m, 2 * hl * hd),
+                v_mem.reshape(b * t, m, hl * hd), key_valid=mem_valid.reshape(b * t, m),
                 generator=generator,
             )
         else:
-            qc = q_content + sine + self.ca_qtime_proj(query_time)
-            kc = k_content + k_pos
+            qc = whole(q_content + sine + self.ca_qtime_proj(time_in))
+            kc = whole(k_content + k_pos)
             ca_out, _ = self.cross_attn_image(
                 qc.reshape(b * t, 1, d), kc.reshape(b * t, m, d),
-                v_mem.reshape(b * t, m, d), key_valid=mem_valid.reshape(b * t, m),
+                whole(v_mem).reshape(b * t, m, d), key_valid=mem_valid.reshape(b * t, m),
                 generator=generator,
             )
         # padded frames contribute nothing
         ca_out = torch.where(frame_valid[..., None], ca_out.reshape(b, t, d).float(), 0.0)
         tgt = self.norm3(tgt + drop(ca_out))
-        ff = self.linear2(drop(torch.relu(self.linear1(tgt))))
+        ff = self.linear2(ffn_hidden(self.linear1, tgt, self.tp, self.dropout, self.training,
+                                     generator))
         return self.norm4(tgt + drop(ff))
 
 
@@ -195,6 +211,7 @@ class TimeDecoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm3 = LayerNorm(d_model, eps=1e-5)
         self.norm4 = LayerNorm(d_model, eps=1e-5)
+        self.tp = None
 
     def forward(self, tgt, memory, mem_valid, mem_pos, query_pos, query_time_pos, frame_valid,
                 generator: Optional[torch.Generator] = None):
@@ -211,7 +228,8 @@ class TimeDecoderLayer(nn.Module):
         )
         ca_out = torch.where(frame_valid[..., None], ca_out.reshape(b, t, d).float(), 0.0)
         tgt = self.norm3(tgt + drop(ca_out))
-        ff = self.linear2(drop(torch.relu(self.linear1(tgt))))
+        ff = self.linear2(ffn_hidden(self.linear1, tgt, self.tp, self.dropout, self.training,
+                                     generator))
         return self.norm4(tgt + drop(ff)), weights
 
 

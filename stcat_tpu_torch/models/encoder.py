@@ -7,7 +7,9 @@ valid frame's CLS slot. Parameter names follow the reference STCAT
 (spatial_layers.N, temporal_layers.N, frame_cls, video_cls, local_pos_embed,
 time_embed). In training mode dropout (rate ``dropout``) applies at the JAX
 package's positions: the softmax weights, the attention output before its
-residual add, the FFN's hidden activation and its output.
+residual add, the FFN's hidden activation and its output. Under tensor
+parallelism (a layer's ``tp``) the heads and the FFN's hidden units are
+split over the model group (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..core.collectives import copy_to
 from ..ops.embeddings import sine_time_embedding
 from ..ops.misc import dropout
 from .attention import Linear, MultiHeadAttention
@@ -35,14 +38,24 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = Linear(ffn_dim, d_model, dtype=dtype)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.tp = None
 
     def forward(self, x, pos, valid, generator: Optional[torch.Generator] = None):
         drop = lambda h: dropout(h, self.dropout, self.training, generator)  # noqa: E731
         qk = x + pos
         attn, _ = self.self_attn(qk, qk, x, key_valid=valid, generator=generator)
         x = self.norm1(x + drop(attn))
-        h = self.linear2(drop(torch.relu(self.linear1(x))))
-        return self.norm2(x + drop(h))
+        h = ffn_hidden(self.linear1, x, self.tp, self.dropout, self.training, generator)
+        return self.norm2(x + drop(self.linear2(h)))
+
+
+def ffn_hidden(linear1, x, tp, rate: float, training: bool, generator=None):
+    """relu(linear1(x)) with dropout: the FFN's hidden activation, or this
+    rank's part of its units under ``tp`` (x enters the model group)."""
+    if tp is None:
+        return dropout(torch.relu(linear1(x)), rate, training, generator)
+    h = torch.relu(linear1(copy_to(x, tp.group)))
+    return dropout(h, rate, training, generator, shard=(-1, tp.index, tp.parts))
 
 
 class TimeEmbedding(nn.Module):

@@ -8,6 +8,9 @@ package gives RoBERTa's attention no kernel route either). LayerNorm eps is
 dropout (``RobertaConfig.dropout``) applies where the JAX package's RoBERTa
 draws it: after the embeddings' LayerNorm, on the attention weights, on the
 FFN output before its residual add, and after the resizer's LayerNorm.
+Under tensor parallelism (``tp``) query / key / value and intermediate.dense
+are column-parallel and the two output.dense row-parallel
+(``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.collectives import copy_to
 from ..ops.misc import dropout
-from .attention import Linear, attention_core, merge_heads, split_heads
+from .attention import Linear, attention_core, heads_of, merge_heads, split_heads
 
 
 @dataclass(frozen=True)
@@ -71,13 +75,15 @@ class _SelfAttention(nn.Module):
         self.query = Linear(c.hidden_size, c.hidden_size, dtype=dtype)
         self.key = Linear(c.hidden_size, c.hidden_size, dtype=dtype)
         self.value = Linear(c.hidden_size, c.hidden_size, dtype=dtype)
+        self.tp = None
 
     def forward(self, x, token_valid, generator=None):
-        h = self.num_heads
+        h = heads_of(self.num_heads, self.tp)
+        x = copy_to(x, None if self.tp is None else self.tp.group)
         out, _ = attention_core(
             split_heads(self.query(x), h), split_heads(self.key(x), h),
             split_heads(self.value(x), h), key_valid=token_valid, dtype=self.dtype,
-            dropout_p=self.dropout if self.training else 0.0, generator=generator,
+            dropout_p=self.dropout if self.training else 0.0, generator=generator, tp=self.tp,
         )
         return merge_heads(out)
 
@@ -111,8 +117,10 @@ class _Intermediate(nn.Module):
     def __init__(self, c: RobertaConfig, dtype):
         super().__init__()
         self.dense = Linear(c.hidden_size, c.intermediate_size, dtype=dtype)
+        self.tp = None
 
     def forward(self, x):
+        x = copy_to(x, None if self.tp is None else self.tp.group)
         return F.gelu(self.dense(x), approximate="none")
 
 

@@ -16,6 +16,13 @@ and decoders, ``HEAD_DROPOUT`` in the temp/action heads,
 from the generator handed to ``forward`` (``model(batch, generator=g)``),
 and a training forward that would draw a mask without one raises. In eval
 mode nothing is drawn.
+
+On a mesh (``models.parallelize``): under sequence parallelism
+(``frame_shard``) the batch holds this rank's frames; the backbone and
+input_proj run on them, and the features and masks are gathered on T before
+the position encoding, so everything after runs on every frame, replicated
+over the seq group. Under tensor parallelism the transformer layers split
+their heads and FFN units over the model group.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch import nn
 
 from ..config import Config
 from ..core.batch import VideoBatch
+from ..core.collectives import gather
 from ..ops.misc import inverse_sigmoid
 from .decoder import MLP, SpatialDecoder, TemplateGenerator, TimeDecoder
 from .encoder import CrossModalEncoder, TimeEmbedding
@@ -112,6 +120,12 @@ class STCATNet(nn.Module):
         self.use_attn = c.SOLVER.USE_ATTN
         self.use_aux_loss = c.SOLVER.USE_AUX_LOSS
         self.query_dim = s.QUERY_DIM
+        self.mesh = None         # core.mesh.Mesh the model is laid out on (parallelize)
+        self.frame_shard = None  # core.mesh.Shard of the frame axis (sequence parallel)
+
+    # parameters that see only this rank's frames under sequence parallelism:
+    # their gradients are summed over the seq group
+    FRAME_LOCAL = ("vis_encoder.0.", "input_proj.")
 
     def forward(self, batch: VideoBatch,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
@@ -126,6 +140,11 @@ class STCATNet(nn.Module):
         feats = nn.functional.linear(feats, wp, self.input_proj.bias.to(dt))
         feats = feats.reshape(b, t, hf, wf, d).float()
         vis_valid = downsample_mask(batch.pixel_valid.bool(), (hf, wf))
+        if self.frame_shard is not None:  # every frame from here on
+            group = self.frame_shard.group
+            feats = gather(feats, group, 1)
+            vis_valid, frame_valid = gather(vis_valid, group, 1), gather(frame_valid, group, 1)
+            t = feats.shape[1]
         vis_pos = self.vis_encoder[1](vis_valid)
 
         text_feats, text_cls = self.text_encoder(batch.token_ids, batch.token_valid, generator)

@@ -28,7 +28,7 @@ from .core.batch import RawVideoBatch, to_device
 from .data.batching import build_raw_batch, pick_bucket
 from .data.tokenize import build_tokenizer, check_tokenizer_for_weights
 from .data.transforms import build_transforms
-from .eval.engine import _decode_rows, merge_two_streams, orig_sizes, to_host
+from .eval.engine import merge_two_streams, orig_sizes, to_host
 from .models import build_model
 from .models.postprocess import postprocess
 from .ops.misc import resolve_device
@@ -104,11 +104,7 @@ class GroundingPredictor:
             boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"], sizes,
                                               placed.frame_valid)
             boxes, s_idx, e_idx = to_host((boxes, s_idx, e_idx))
-        fv = raw.frame_valid
-        if all(m.get("pad") for m in m2):
-            bbox_pred, temp_pred = _decode_rows(boxes, s_idx, e_idx, fv, m1, 0)
-        else:
-            bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, fv, m1, m2)
+        bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, raw.frame_valid, m1, m2)
         return [
             {"boxes": {fid: bb[0] for fid, bb in bbox_pred[i].items()},
              "span": temp_pred[i]["sted"]}

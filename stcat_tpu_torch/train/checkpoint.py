@@ -22,6 +22,13 @@ None in a converted checkpoint, which cannot resume training), "ema"}, and a
 ``load_weights_for_eval`` resolves MODEL.WEIGHT for inference: a torch file
 of reference-named weights, or a checkpoint directory with the EMA weights
 preferred.
+
+On a mesh (``Checkpointer(..., mesh=)``) a checkpoint holds the whole model
+in the reference layout whatever the layout that wrote it: ``save`` gathers
+the tensor-parallel parts of the weights, the EMA and the optimizer's
+moments over the model group (every rank calls it), and only the main
+process writes; ``restore`` gives each rank its parts. So a run saved under
+one layout resumes under another, bitwise.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ import time
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..core.dist import is_main_process
+from ..core.mesh import full_shape, gather_state_dict, shard_state_dict
 
 _FILE = re.compile(r"model_(\d+)\.pt$")
 
@@ -54,11 +64,39 @@ def _snapshot(obj):
     return copy.deepcopy(obj)
 
 
+def map_moments(opt_sd: Dict, names, fn) -> Dict:
+    """A copy of a ``GroupedOptimizer.state_dict()`` whose per-element
+    moments (exp_avg, exp_avg_sq, momentum_buffer, ...) went through
+    ``fn({parameter name: tensor})``, one kind at a time."""
+    state = {i: dict(st) for i, st in opt_sd["core"]["state"].items()}
+    kinds = {k for st in state.values() for k, v in st.items()
+             if isinstance(v, torch.Tensor) and v.dim() > 0}
+    for kind in sorted(kinds):
+        owners = [i for i, st in state.items() if kind in st and st[kind].dim() > 0]
+        out = fn({names[i]: state[i][kind] for i in owners})
+        for i in owners:
+            state[i][kind] = out[names[i]]
+    return {**opt_sd, "core": {**opt_sd["core"], "state": state}}
+
+
+def whole_state(state, mesh) -> Dict:
+    """{"model", "optimizer", "ema"} of a TrainState in the reference layout
+    (gathered over the model group under tensor parallelism)."""
+    opt = state.optimizer
+    return {
+        "model": gather_state_dict(state.model.state_dict(), mesh),
+        "optimizer": None if opt is None else map_moments(
+            opt.state_dict(), opt.param_names, lambda d: gather_state_dict(d, mesh)),
+        "ema": None if state.ema is None else gather_state_dict(state.ema, mesh),
+    }
+
+
 class Checkpointer:
-    def __init__(self, output_dir: str, logger=None, keep: int = 10):
+    def __init__(self, output_dir: str, logger=None, keep: int = 10, mesh=None):
         self.dir = os.path.abspath(os.path.join(output_dir, "checkpoints"))
         self.logger = logger
         self.keep = keep
+        self.mesh = mesh
         os.makedirs(self.dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._pending: Optional[int] = None
@@ -78,12 +116,11 @@ class Checkpointer:
             return
         self.flush()  # the previous save commits before its tag moves
         t0 = time.perf_counter()
-        payload = _snapshot({
-            "step": int(step),
-            "model": state.model.state_dict(),
-            "optimizer": None if state.optimizer is None else state.optimizer.state_dict(),
-            "ema": state.ema,
-        })
+        whole = whole_state(state, self.mesh)
+        if not is_main_process():  # the main process writes the run's checkpoint
+            self._saved = step
+            return
+        payload = _snapshot({"step": int(step), **whole})
         done = None
         if next(state.model.parameters()).is_cuda:
             done = torch.cuda.Event()
@@ -160,15 +197,17 @@ class Checkpointer:
                 f"{self.dir} holds weights without optimizer state (a converted checkpoint, "
                 "cli/convert.py), so training cannot resume from it; pass it as MODEL.WEIGHT "
                 "to evaluate or serve it")
-        state.model.load_state_dict(payload["model"], strict=True)
-        state.optimizer.load_state_dict(payload["optimizer"])
+        mesh, opt = self.mesh, state.optimizer
+        state.model.load_state_dict(shard_state_dict(payload["model"], mesh), strict=True)
+        opt.load_state_dict(map_moments(payload["optimizer"], opt.param_names,
+                                        lambda d: shard_state_dict(d, mesh)))
         if (state.ema is None) != (payload["ema"] is None):
             raise ValueError("the checkpoint and the run disagree on MODEL.EMA")
         if state.ema is not None:
             if set(state.ema) != set(payload["ema"]):
                 raise ValueError("the checkpoint's EMA holds other parameters than the model")
             with torch.no_grad():
-                for name, value in payload["ema"].items():
+                for name, value in shard_state_dict(payload["ema"], mesh).items():
                     state.ema[name].copy_(value)
         state.step = int(payload["step"])
         return state, state.step
@@ -177,7 +216,8 @@ class Checkpointer:
                          ) -> Dict[str, torch.Tensor]:
         """The state_dict to evaluate, EMA weights preferred (buffers from
         the model), checked against ``template`` (a fresh model's
-        state_dict): the same keys and shapes, cast to its dtypes."""
+        state_dict, this rank's parts on a mesh): the same keys and whole
+        shapes, cast to its dtypes, cut to this rank's parts."""
         payload = self._load(step)
         chosen = dict(payload["model"])
         if payload.get("ema") is not None:
@@ -186,14 +226,15 @@ class Checkpointer:
         if missing or extra:
             raise ValueError(f"checkpoint in {self.dir}: keys differ from the model's "
                              f"(missing {sorted(missing)[:4]}, extra {sorted(extra)[:4]})")
+        parts = 1 if self.mesh is None else self.mesh.model_parallel
         out = {}
         for name, want in template.items():
-            got = chosen[name]
-            if tuple(got.shape) != tuple(want.shape):
+            got, shape = chosen[name], full_shape(name, want.shape, parts)
+            if tuple(got.shape) != shape:
                 raise ValueError(f"checkpoint {name}: shape {tuple(got.shape)} != expected "
-                                 f"{tuple(want.shape)}")
+                                 f"{shape}")
             out[name] = got.to(want.dtype)
-        return out
+        return shard_state_dict(out, self.mesh)
 
 
 def load_torch_file(path: str) -> Dict:
@@ -220,7 +261,8 @@ def load_weights_for_eval(model: torch.nn.Module, weight: str, logger=None) -> N
     base = weight.rstrip("/")
     if base.endswith("checkpoints"):
         base = os.path.dirname(base)
-    sd = Checkpointer(base, logger).restore_for_eval(model.state_dict())
+    sd = Checkpointer(base, logger, mesh=getattr(model, "mesh", None)).restore_for_eval(
+        model.state_dict())
     model.load_state_dict(sd, strict=True)
     if logger is not None:
         logger.info(f"loaded weights from {weight} (EMA preferred)")

@@ -18,6 +18,8 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
+from ..core.mesh import MODEL_AXIS, shard_tensor, tp_rule
+
 # keys of a reference checkpoint that the port has no counterpart for: BN
 # step counters, the fixed sine time tables (recomputed) and the reference's
 # unused ground_encoder.fusion module
@@ -92,6 +94,8 @@ def load_reference_state_dict(model: nn.Module, sd: Dict, strict: bool = True,
     otherwise (a partial checkpoint) the complete sections load. Keys of
     ``sd`` that nothing took are reported, the known ones aside."""
     own = model.state_dict()
+    mesh = getattr(model, "mesh", None)
+    part = (0, 1) if mesh is None else (mesh.axis_index(MODEL_AXIS), mesh.model_parallel)
     keys = list(own) if strict else partial_keys(list(own), sd)
     missing = [k for k in keys if k not in sd]
     if missing:
@@ -102,6 +106,7 @@ def load_reference_state_dict(model: nn.Module, sd: Dict, strict: bool = True,
     with torch.no_grad():
         for k in keys:
             src = torch.as_tensor(sd[k])
+            src = shard_tensor(src, tp_rule(k, src.dim()), *part)  # this rank's part on a mesh
             if tuple(src.shape) != tuple(own[k].shape):
                 raise ValueError(f"{k}: checkpoint shape {tuple(src.shape)} != model "
                                  f"{tuple(own[k].shape)}")

@@ -3,8 +3,10 @@ metrics, checkpoints and validation.
 
     state, iteration = train(cfg, dataset_builder, max_iters=None, device=None)
 
-In order: the train split's loader; the model (seeded from SEED), optimizer,
-EMA and step; a checkpoint in OUTPUT_DIR resumes the run (and overrides
+In order: the mesh (``mesh_from_config``: one process, or the ranks of the
+process group, logged); the train split's loader (this data rank's shard);
+the model (seeded from SEED, laid out on the mesh), optimizer, EMA and step;
+a checkpoint in OUTPUT_DIR resumes the run (and overrides
 MODEL.WEIGHT), else MODEL.WEIGHT initialises it; SOLVER.PRE_VAL validates
 first. Each iteration pulls a batch already on the card (core/prefetch.py)
 and takes a step; the step's losses stay on the card, and the loop reads
@@ -20,8 +22,11 @@ the final save blocks. TPU.PROFILE_STEP traces three steps with
 torch.profiler into OUTPUT_DIR/trace.
 
 Dropout draws from a ``torch.Generator`` seeded per iteration from (SEED,
-iteration) alone (``step_generator``), so a resumed run draws what an
-uninterrupted one would.
+iteration, data rank) (``step_generator``), so a resumed run draws what an
+uninterrupted one would, and the ranks of one model or seq group, which
+hold the same activations, draw the same masks (tensor-parallel parts take
+their part of the whole mask, ``ops.misc.dropout``). Only the main process
+writes metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from typing import Optional
 
 import torch
 
-from ..core.dist import is_main_process
+from ..core.dist import get_rank, is_main_process
 from ..core.logging import MetricLogger, setup_logger
+from ..core.mesh import local_batch, mesh_from_config
 from ..core.metrics_writer import MetricsWriter
 from ..core.prefetch import prefetch_to_device
 from ..data.loader import make_loader
@@ -49,10 +55,11 @@ from .step import create_train_state, make_train_step
 LOG_PERIOD = 50
 
 
-def step_generator(cfg, iteration: int, device) -> torch.Generator:
-    """The dropout generator of the step that follows ``iteration`` steps."""
+def step_generator(cfg, iteration: int, device, data_index: int = 0) -> torch.Generator:
+    """The dropout generator of the step that follows ``iteration`` steps,
+    on data rank ``data_index`` (0: one process's)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((cfg.SEED + 1) * 1_000_003 + iteration)
+    gen.manual_seed((cfg.SEED + 1) * 1_000_003 + iteration + (data_index << 40))
     return gen
 
 
@@ -67,20 +74,22 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
     dataset_builder(cfg, split) -> dataset (default: the real benchmarks).
     Returns (TrainState, last iteration)."""
     dev = resolve_device(device)
-    logger = logger or setup_logger("stcat_tpu_torch", cfg.OUTPUT_DIR)
+    logger = logger or setup_logger("stcat_tpu_torch", cfg.OUTPUT_DIR, rank=get_rank())
     dataset_builder = dataset_builder or _default_builder
-    loader = make_loader(cfg, dataset_builder(cfg, "train"), "train")
+    mesh = mesh_from_config(cfg)
+    logger.info(f"mesh: {mesh.size} device(s), shape {dict(mesh.shape)}")
+    loader = make_loader(cfg, dataset_builder(cfg, "train"), "train", mesh=mesh)
     num_training_steps = cfg.SOLVER.MAX_EPOCH * loader.iters_per_epoch
     if max_iters is not None:
         num_training_steps = min(num_training_steps, max_iters)
 
-    model = build_model(cfg, dev, seed=cfg.SEED)
+    model = build_model(cfg, dev, seed=cfg.SEED, mesh=mesh)
     opt = make_optimizer(cfg, model, num_training_steps)
     state = create_train_state(cfg, model, opt)
     step_fn = make_train_step(cfg, model, opt, device=dev)
     lrs_at = current_lrs(cfg, num_training_steps)
 
-    ckpt = Checkpointer(cfg.OUTPUT_DIR, logger) if cfg.OUTPUT_DIR else None
+    ckpt = Checkpointer(cfg.OUTPUT_DIR, logger, mesh=mesh) if cfg.OUTPUT_DIR else None
     if ckpt is not None and ckpt.has_checkpoint():
         state, loader.start_iter = ckpt.restore(state)
         logger.info(f"Resumed from iteration {loader.start_iter}")
@@ -89,7 +98,7 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
 
     eval_model = None
     if cfg.SOLVER.PRE_VAL:
-        eval_model = build_model(cfg, dev, seed=cfg.SEED)
+        eval_model = build_model(cfg, dev, seed=cfg.SEED, mesh=mesh)
         run_validation(cfg, eval_model, state, dataset_builder, logger)
 
     writer = (MetricsWriter(cfg.OUTPUT_DIR, cfg.TENSORBOARD_DIR or None)
@@ -99,7 +108,8 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
     meters = MetricLogger()
     iteration = loader.start_iter
     profiler = None
-    stream = prefetch_to_device(iter(loader), dev, depth=2)
+    stream = prefetch_to_device(((local_batch(b, mesh), local_batch(t, mesh), m)
+                                 for b, t, m in loader), dev, depth=2)
     try:
         while iteration < num_training_steps:
             t0 = time.perf_counter()
@@ -108,7 +118,8 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
             except StopIteration:
                 break
             data_time = time.perf_counter() - t0
-            metrics = step_fn(state, batch, targets, step_generator(cfg, iteration, dev))
+            metrics = step_fn(state, batch, targets,
+                              step_generator(cfg, iteration, dev, mesh.data_index))
             iteration += 1
             log_now = iteration % LOG_PERIOD == 0 or iteration == num_training_steps
             if log_now:  # the loop's only read of the step's results: waits for the card
@@ -150,7 +161,7 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
             if (cfg.SOLVER.TO_VAL and iteration % cfg.SOLVER.VAL_PERIOD == 0
                     and iteration != num_training_steps):
                 if eval_model is None:
-                    eval_model = build_model(cfg, dev, seed=cfg.SEED)
+                    eval_model = build_model(cfg, dev, seed=cfg.SEED, mesh=mesh)
                 run_validation(cfg, eval_model, state, dataset_builder, logger)
     finally:
         stream.close()
@@ -198,7 +209,7 @@ def run_validation(cfg, eval_model, state, dataset_builder, logger):
     except FileNotFoundError:
         logger.info("no test split available; skipping validation")
         return None
-    loader = make_loader(cfg, val_ds, "test")
+    loader = make_loader(cfg, val_ds, "test", mesh=eval_model.mesh)
     _copy_weights(eval_model, state)
     t0 = time.perf_counter()
     res = do_eval(cfg, eval_model, loader, build_evaluator(cfg, logger, "test"), logger)

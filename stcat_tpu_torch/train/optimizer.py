@@ -16,6 +16,11 @@ clipping and EMA (the JAX package's train/optimizer.py).
     with momentum; frozen parameters are not registered, so they get no
     update and no weight decay;
   * EMA of every parameter: e = e * decay + (1 - decay) * p.
+
+On a model laid out with tensor parallelism every moment and EMA copy lives
+on its parameter's part, and the clipped norm is the whole model's: the
+squares of the sharded parameters' gradients are summed over the model
+group, each replicated one counted once.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from typing import Callable, Dict, List
 
 import torch
 from torch import nn
+
+from ..core.collectives import all_reduce
+from ..core.mesh import MODEL_AXIS, tp_rule
 
 GROUPS = ("rest", "vis", "text", "temp")
 
@@ -116,20 +124,51 @@ class GroupedOptimizer:
                    "lr": 0.0, "name": g} for g in GROUPS]
         groups = [g for g in groups if g["params"]]
         self.trainable = [p for g in groups for p in g["params"]]
+        # names in the core's parameter order (its state_dict's indices)
+        by_id = {id(p): n for n, p in params.items()}
+        self.param_names = [by_id[id(p)] for p in self.trainable]
         self.core = _core(s.OPTIMIZER, groups, s)
         self.max_grad_norm = s.MAX_GRAD_NORM
         self.lrs_at = current_lrs(cfg, num_training_steps)
         self.count = 0
+        mesh = getattr(model, "mesh", None)
+        self.model_group = None
+        self.sharded = set()
+        if mesh is not None and mesh.model_parallel > 1:
+            self.model_group = mesh.group(MODEL_AXIS)
+            self.sharded = {id(p) for n, p in params.items() if tp_rule(n, p.dim()) is not None}
 
     def zero_grad(self) -> None:
         self.core.zero_grad(set_to_none=True)
         for p in self.frozen:
             p.grad = None
 
+    def _sq_norms(self, params) -> torch.Tensor:
+        """[replicated, sharded] sums of squared gradients, the sharded one
+        summed over the model group."""
+        dev = params[0].device
+        sums = torch.zeros(2, dtype=torch.float32, device=dev)
+        for p in params:
+            if p.grad is not None:
+                sums[int(id(p) in self.sharded)] += p.grad.float().pow(2).sum()
+        sharded = all_reduce(sums[1:].clone(), self.model_group)
+        return torch.cat([sums[:1], sharded])
+
+    def grad_norms(self) -> Dict[str, float]:
+        """Each group's gradient norm over the whole model (a collective
+        under tensor parallelism: every rank of the model group calls it)."""
+        return {g["name"]: self._sq_norms(g["params"]).sum().sqrt().item()
+                for g in self.core.param_groups}
+
     def step(self) -> None:
         for p in self.frozen:
             p.grad = None
-        torch.nn.utils.clip_grad_norm_(self.trainable, self.max_grad_norm)
+        if self.model_group is None:
+            torch.nn.utils.clip_grad_norm_(self.trainable, self.max_grad_norm)
+        else:
+            total = self._sq_norms(self.trainable).sum().sqrt()
+            coef = (self.max_grad_norm / (total + 1e-6)).clamp(max=1.0)
+            torch._foreach_mul_([p.grad for p in self.trainable if p.grad is not None], coef)
         lrs = self.lrs_at(self.count)
         for group in self.core.param_groups:
             group["lr"] = lrs[group["name"]]

@@ -1,4 +1,4 @@
-"""The train step (the JAX package's train/step.py, one device).
+"""The train step (the JAX package's train/step.py).
 
     model = build_model(cfg, seed=0)                       # cuda by default
     opt = make_optimizer(cfg, model, num_training_steps)
@@ -15,9 +15,18 @@ whole batch, so the accumulated loss and gradients equal the full batch's,
 and each draws its dropout masks from the step's generator in turn. Then one
 optimizer update and the EMA. The model, optimizer and EMA are updated in
 place; the step returns the loss and its terms, averaged over microbatches,
-as device tensors. The mesh, tensor- and sequence-parallel branches of the
-JAX step belong to the multi-GPU slice and raise here. ``make_eval_forward``
-is the inference forward of evaluation and serving.
+as device tensors. ``make_eval_forward`` is the inference forward of
+evaluation and serving.
+
+On a mesh (a model built with ``build_model(..., mesh=)``) each rank holds
+its part of the global batch (``core/mesh.py``): ``num_boxes`` is the global
+batch's (GT boxes and clips summed over the data group before the first
+microbatch), the frame fields of the targets are gathered on T under
+sequence parallelism, and after the last microbatch the gradients of the
+parameters that saw only this rank's frames are summed over the seq group
+and then every gradient is averaged over the data group, in one flat
+all-reduce each (the JAX step's single gradient pmean). The returned losses
+are the global batch's means.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ import torch
 from torch import nn
 
 from ..core.batch import RawVideoBatch, VideoTargets, device_split_streams, to_device
+from ..core.collectives import all_reduce, flat_all_reduce
 from ..core.dist import get_world_size
+from ..core.mesh import gather_frame_fields, gather_frames
 from ..ops.misc import resolve_device
 from ..ops.preprocess import preprocess
 from .criterion import build_weight_dict, video_stg_loss
@@ -58,16 +69,35 @@ def _rows(batch, start: int, stop: int):
     return dataclasses.replace(batch, **upd)
 
 
-def _check_cfg(cfg) -> int:
-    t = cfg.TPU
-    if t.MESH_DATA > 1 or t.MODEL_PARALLEL > 1 or t.SEQUENCE_PARALLEL:
-        raise NotImplementedError(
-            "data/tensor/sequence-parallel training belongs to the multi-GPU slice "
-            "(ROADMAP.md, Queue A)")
-    accum = int(t.GRAD_ACCUM)
+def _check_cfg(cfg, model: nn.Module) -> int:
+    accum = int(cfg.TPU.GRAD_ACCUM)
     if accum < 1:
         raise ValueError(f"TPU.GRAD_ACCUM must be >= 1, got {accum}")
+    mesh = getattr(model, "mesh", None)
+    if mesh is None and (get_world_size() > 1 or cfg.TPU.MODEL_PARALLEL > 1):
+        raise ValueError("several processes or TPU.MODEL_PARALLEL > 1 train a model laid out "
+                         "on a mesh: build_model(cfg, device, seed, mesh=mesh_from_config(cfg))")
+    if mesh is not None and (mesh.model_parallel != max(1, cfg.TPU.MODEL_PARALLEL)
+                             or mesh.sequence_parallel != bool(cfg.TPU.SEQUENCE_PARALLEL)):
+        raise ValueError(f"the model's {mesh} does not match TPU.MODEL_PARALLEL="
+                         f"{cfg.TPU.MODEL_PARALLEL}, SEQUENCE_PARALLEL={cfg.TPU.SEQUENCE_PARALLEL}")
     return accum
+
+
+def reduce_gradients(model: nn.Module, optimizer: GroupedOptimizer) -> None:
+    """The mesh's gradient rules, in place: sum the frame-local parameters'
+    gradients over the seq group, then average every gradient over the data
+    group (no-ops on groups this layout lacks)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return
+    named = [(n, p) for n, p in zip(optimizer.param_names, optimizer.trainable)
+             if p.grad is not None]
+    if mesh.seq_parallel > 1:
+        flat_all_reduce([p.grad for n, p in named if n.startswith(model.FRAME_LOCAL)],
+                        mesh.group(mesh.frame_axis))
+    flat_all_reduce([p.grad for _, p in named], mesh.group(mesh.clip_axis),
+                    scale=1.0 / mesh.data_parallel)
 
 
 def accumulate_grads(cfg, model: nn.Module, optimizer: GroupedOptimizer, batch,
@@ -76,15 +106,25 @@ def accumulate_grads(cfg, model: nn.Module, optimizer: GroupedOptimizer, batch,
     """The gradient half of a step: the parameters' ``.grad`` are zeroed and
     then hold the batch loss's gradients, accumulated over TPU.GRAD_ACCUM
     microbatches; returns {"loss", "loss_*"} averaged over them (tensors).
-    Batch and targets must be on the model's device."""
-    accum = _check_cfg(cfg)
+    Batch and targets must be on the model's device. On a mesh they are this
+    rank's part of the global batch, and the gradients and losses on return
+    are the global batch's (``reduce_gradients``)."""
+    accum = _check_cfg(cfg, model)
+    mesh = getattr(model, "mesh", None)
     b = targets.box_valid.shape[0]
     if b % accum:
         raise ValueError(f"TPU.GRAD_ACCUM={accum} does not divide batch size {b}")
     mb = b // accum
     s = cfg.SOLVER
     weight_dict = build_weight_dict(cfg)
-    num_boxes = (targets.box_valid.sum().float() / b).clamp(min=1.0)
+    targets = gather_frame_fields(targets, mesh)
+    time_mask = gather_frames(batch.frame_valid, mesh)
+    # torch.full, not torch.tensor: a copy from host memory would wait for the card
+    counts = torch.stack([targets.box_valid.sum().float(),
+                          torch.full((), float(b), device=time_mask.device)])
+    if mesh is not None:
+        all_reduce(counts, mesh.group(mesh.clip_axis))
+    num_boxes = (counts[0] / counts[1]).clamp(min=1.0)
     model.train()
     optimizer.zero_grad()
     sums: Dict[str, torch.Tensor] = {}
@@ -94,13 +134,17 @@ def accumulate_grads(cfg, model: nn.Module, optimizer: GroupedOptimizer, batch,
             part = preprocess(part, tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD))
         outputs = model(part, generator=generator)
         losses = video_stg_loss(outputs, _rows(targets, i * mb, (i + 1) * mb),
-                                part.frame_valid, num_boxes, sigma=s.SIGMA,
+                                time_mask[i * mb:(i + 1) * mb], num_boxes, sigma=s.SIGMA,
                                 eos_coef=s.EOS_COEF, use_attn=s.USE_ATTN,
                                 use_actioness=cfg.MODEL.STCAT.USE_ACTION)
         total = sum(losses[k] * w for k, w in weight_dict.items() if k in losses)
         (total / accum).backward()
         for k, v in {"loss": total, **losses}.items():
             sums[k] = sums.get(k, 0.0) + v.detach() / accum
+    reduce_gradients(model, optimizer)
+    if mesh is not None and mesh.data_parallel > 1:
+        stacked = all_reduce(torch.stack(list(sums.values())), mesh.group(mesh.clip_axis))
+        sums = dict(zip(sums, (stacked / mesh.data_parallel).unbind(0)))
     return sums
 
 
@@ -111,7 +155,7 @@ def make_train_step(cfg, model: nn.Module, optimizer: GroupedOptimizer, device=N
     detached 0-d tensors on the device: the step never waits for the card,
     and the caller reads them when it needs them (the loop, every
     LOG_PERIOD steps)."""
-    _check_cfg(cfg)
+    _check_cfg(cfg, model)
     dev = resolve_device(device)
 
     def step(state: TrainState, batch, targets: VideoTargets,
@@ -131,7 +175,8 @@ def make_train_step(cfg, model: nn.Module, optimizer: GroupedOptimizer, device=N
 
 def eval_device_split_active(cfg) -> bool:
     """Whether the eval forward splits the two test streams on the device
-    (TPU.EVAL_DEVICE_SPLIT); single-process only."""
+    (TPU.EVAL_DEVICE_SPLIT); single-process only, as in the JAX package: on
+    several processes the batches arrive stacked on the host."""
     return bool(cfg.TPU.EVAL_DEVICE_SPLIT) and get_world_size() == 1
 
 
@@ -140,12 +185,14 @@ def make_eval_forward(cfg, model: nn.Module, device_split: Optional[bool] = None
     """fwd(batch) -> the postprocess inputs {"pred_boxes", "pred_sted"} of a
     batch (raw, or the host path's VideoBatch) on the model's device, in
     inference mode. With the device split (``device_split`` None:
-    ``eval_device_split_active(cfg)``) the batch arrives unsplit, is split
-    into its even and odd streams and stacked here, and the split frame mask
-    is returned as "frame_valid"; without it the batch arrives stacked
-    (serve.py, the host split)."""
+    ``eval_device_split_active(cfg)``) the batch arrives unsplit and is split
+    into its even and odd streams and stacked here; without it the batch
+    arrives stacked (serve.py, the host split). "frame_valid" is the frame
+    mask of the predictions' rows: the split one, or, on a sequence-parallel
+    mesh, the rank's frames' gathered back to every frame."""
     split = eval_device_split_active(cfg) if device_split is None else bool(device_split)
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
+    mesh = getattr(model, "mesh", None)
 
     def fwd(batch) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
@@ -154,9 +201,7 @@ def make_eval_forward(cfg, model: nn.Module, device_split: Optional[bool] = None
             if isinstance(batch, RawVideoBatch):
                 batch = preprocess(batch, mean, std)
             out = model.eval()(batch)
-            ret = {"pred_boxes": out["pred_boxes"], "pred_sted": out["pred_sted"]}
-            if split:
-                ret["frame_valid"] = batch.frame_valid
-            return ret
+            return {"pred_boxes": out["pred_boxes"], "pred_sted": out["pred_sted"],
+                    "frame_valid": gather_frames(batch.frame_valid, mesh)}
 
     return fwd

@@ -69,6 +69,20 @@ def test_single_frame_clip_matches_jax(predictors):
     assert ours["span"] == [0, 1]
 
 
+def test_single_frame_clip_shares_a_batch_with_a_longer_one(predictors):
+    """A single-frame clip (its second stream is padding) and a 12-frame
+    clip in one batch: each answer equals the JAX predictor's for that clip
+    alone. (The JAX predictor's stream merge raises KeyError on this batch;
+    the port's merge keeps the single-frame clip's first stream.)"""
+    jax_pred, port = predictors
+    reqs = [(_clip(t=1, seed=3), "one frame", None), (_clip(seed=5), "a longer clip", None)]
+    ours = port.predict_batch(reqs)
+    for (clip, text, _), got in zip(reqs, ours):
+        _assert_same(got, jax_pred.predict(clip, text))
+    with pytest.raises(KeyError):
+        jax_pred.predict_batch(reqs)
+
+
 def test_sparse_frame_ids_match_jax(predictors):
     jax_pred, port = predictors
     clip, fids = _clip(t=8, seed=4), [3, 5, 7, 9, 11, 13, 15, 17]

@@ -268,6 +268,15 @@ def test_grad_accum_two_equals_one_on_a_raw_batch():
 
 
 def test_train_step_refuses_what_it_does_not_do():
+    """A GRAD_ACCUM that does not divide the batch; a model-parallel size
+    that does not divide the heads, refused with the JAX step's own
+    ``_validate_tp`` message (the tiny text model has 2 heads, 4 ranks); a
+    MODEL_PARALLEL config on a model built without a mesh."""
+    from stcat_tpu.core.mesh import make_mesh as jmake_mesh
+    from stcat_tpu.train.step import _validate_tp
+
+    from stcat_tpu_torch.core.mesh import make_mesh
+
     cfg = port_cfg(tiny_cfg(NO_DROPOUT + ["TPU.GRAD_ACCUM", 3]))
     model = build_model(cfg, device="cpu", seed=0)
     opt = make_optimizer(cfg, model, 10)
@@ -275,7 +284,15 @@ def test_train_step_refuses_what_it_does_not_do():
     raw, targets = _raw_batch(cfg)
     with pytest.raises(ValueError, match="GRAD_ACCUM"):
         step(create_train_state(cfg, model, opt), raw, targets, None)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+
+    jcfg = tiny_cfg(NO_DROPOUT + ["TPU.MODEL_PARALLEL", 4])
+    with pytest.raises(ValueError, match="not divisible") as jax_err:
+        _validate_tp(jcfg, jmake_mesh(8, model_parallel=4))
+    with pytest.raises(ValueError, match="not divisible") as port_err:
+        build_model(port_cfg(jcfg), device="cpu", seed=0,
+                    mesh=make_mesh(4, model_parallel=4, world_size=4, rank=0))
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(dataclasses.replace(cfg, TPU=dataclasses.replace(cfg.TPU,
                                                                           MODEL_PARALLEL=2)),
                         model, opt, device="cpu")
