@@ -36,7 +36,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
      versions from the initial state (loss, group gradient norms, the
      gradient of every leaf K2 feeds); then 3 steps: losses finite,
      K1/K2/K3 launched (K2 once per K1 launch), the frozen stem and layer1
-     unchanged, every trainable group and the EMA moved; then one more step
+     unchanged, every trainable group and the EMA moved, the RoBERTa
+     pooler (no gradient) at its seeded value x prod(1 - lr_t x WD) within
+     rtol 1e-6, as the optax chain decays it; the port's AdamW on one leaf
+     for 500 steps at lr x WD = 1e-8: the weight decay it applies within 2%
+     of lr x WD x steps x |p|; then one more step
      under torch.profiler, its device time broken down by kernel (K1, K2,
      K3 forward, the K3 recompute in the backward, the rest) against the
      step's wall time; a kernel whose counter moved but whose device name
@@ -65,7 +69,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
      signature (seconds and peak memory each; K2 launched by the train
      one), and cli.repro --synthetic's report;
   7. MODEL.USE_LSTM true, full width otherwise: one served batch and one
-     train step (K1 = K2 = 24, K3 = 30 per microbatch).
+     train step (K1 = K2 = 24, K3 = 30 per microbatch): every text-encoder
+     tensor moved but each LSTM's bias_ih_l0, which stays exactly 0.
   8. the input paths, on the loop phase's items as a JPEG corpus: whether
      g++, jpeglib.h and ffmpeg exist and the native decoders built, native
      libjpeg vs PIL ms per frame; then train.loop.train for 2 iterations
@@ -129,7 +134,7 @@ from stcat_tpu_torch.kernels import attention as kattn  # noqa: E402
 from stcat_tpu_torch.kernels import bottleneck as kbottle  # noqa: E402
 from stcat_tpu_torch.models import build_model  # noqa: E402
 from stcat_tpu_torch.serve import GroundingPredictor, MicroBatcher, eval_forward  # noqa: E402
-from stcat_tpu_torch.train.optimizer import make_optimizer  # noqa: E402
+from stcat_tpu_torch.train.optimizer import AdamW, make_optimizer  # noqa: E402
 from stcat_tpu_torch.train.step import (  # noqa: E402
     accumulate_grads, create_train_state, make_train_step,
 )
@@ -782,6 +787,7 @@ def train_phase():
     torch.cuda.empty_cache()
 
     before = {n: p.detach().clone() for n, p in named.items()}
+    count0 = opt.count
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     torch.cuda.reset_peak_memory_stats()
@@ -825,11 +831,68 @@ def train_phase():
         if not (moved > 0 and 0 < ema_moved and gap_after < gap_before):
             raise AssertionError(f"group {g}: params or EMA did not move as expected")
     print(f"  frozen stem + layer1: {len(frozen)} parameters bitwise unchanged")
+    check_pooler_decay(cfg, opt, named, before, count0)
+    check_adamw_decay()
     del before
 
     sync_free_step(step, state, raw, targets, gen, step_s[1:])
     profile_step(step, state, raw, targets, gen)
     return launches
+
+
+POOLER = "text_encoder.body.pooler.dense.weight"
+
+
+def check_pooler_decay(cfg, opt, named, before, count0) -> None:
+    """The RoBERTa pooler's output feeds nothing, so it gets no gradient;
+    the optax chain still decays it (jax.grad gives it a zero one). After
+    the hand-fed steps it must equal its seeded value x prod(1 - lr_t x WD)
+    over the steps taken, lr_t from the optimizer's own schedule for the
+    text group, elementwise at rtol 1e-6 (fp32 rounding)."""
+    wd = cfg.SOLVER.WEIGHT_DECAY
+    lrs = [opt.lrs_at(t)["text"] for t in range(count0, opt.count)]
+    factor = float(np.prod([1.0 - lr * wd for lr in lrs]))
+    want = before[POOLER].double() * factor
+    got = named[POOLER].detach().double()
+    rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+    moved = (got - before[POOLER].double()).abs().max().item()
+    print(f"  {POOLER} after {len(lrs)} steps: seeded x {factor!r} (lr_t x WD "
+          f"{lrs[0] * wd:.3e} to {lrs[-1] * wd:.3e}); largest relative error {rel:.3e} "
+          f"(tol 1e-6); largest |change| {moved:.3e}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{POOLER}: {rel:.3e} from seeded x prod(1 - lr_t x WD)")
+
+
+def check_adamw_decay(steps: int = 500, lr: float = 1e-4, wd: float = 1e-4) -> None:
+    """The port's AdamW on the card at the recipe's BASE_LR x WEIGHT_DECAY
+    (1e-8 per step, below fp32's resolution of a weight), one seeded
+    [1000, 1000] leaf: its weights' shift along -p against the same run at
+    WD 0 must be lr x WD x steps x |p| within 2%, as the optax chain's is
+    (tests/test_torch_optim.py). torch.optim.AdamW's shift is printed
+    beside it (its factor 1 - lr x WD rounds to 1 in fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p0 = torch.randn(1000, 1000, generator=gen, device="cuda") * 0.02
+    grads = [torch.randn(1000, 1000, generator=gen, device="cuda") for _ in range(20)]
+
+    def run(make, decay):
+        p = torch.nn.Parameter(p0.clone())
+        opt = make([p], weight_decay=decay)
+        opt.param_groups[0]["lr"] = lr
+        for t in range(steps):
+            p.grad = grads[t % 20]
+            opt.step()
+        return p.detach().double()
+
+    unit = p0.double() / p0.double().norm()
+    want = lr * wd * steps * p0.double().norm().item()
+    shifts = {name: ((run(make, 0.0) - run(make, wd)) * unit).sum().item()
+              for name, make in (("port", AdamW), ("torch.optim.AdamW", torch.optim.AdamW))}
+    rel = abs(shifts["port"] - want) / want
+    print(f"  AdamW, {steps} steps at lr x WD {lr * wd:.0e}: weights shifted along -p by "
+          f"{shifts['port']:.4e} (lr x WD x steps x |p| = {want:.4e}, rel {rel:.3e}, tol 2e-2); "
+          f"torch.optim.AdamW {shifts['torch.optim.AdamW']:.4e}")
+    if not rel <= 2e-2:
+        raise AssertionError(f"AdamW applies {shifts['port']:.4e} of weight decay, want {want:.4e}")
 
 
 @contextlib.contextmanager
@@ -1728,7 +1791,9 @@ def lstm_phase():
     per direction) at full width otherwise: one served batch through
     GroundingPredictor (K1 and K3 launched, finite outputs) and one train
     step with the kernels (K1 = K2 = 24, K3 = 30 per microbatch at
-    STCAT.DROPOUT 0, GRAD_ACCUM 2), its LSTM weights moved."""
+    STCAT.DROPOUT 0, GRAD_ACCUM 2): every text-encoder tensor moved but
+    each LSTM's bias_ih_l0, which stays exactly 0 (flax's cell has one bias
+    per gate, the hidden one)."""
     cfg = recipe_cfg("MODEL.USE_LSTM", "true", "MODEL.STCAT.DROPOUT", "0.0",
                      "TPU.GRAD_ACCUM", str(ACCUM), "SOLVER.WARMUP_PROP", "0.0")
     for counter in KERNEL_COUNTERS.values():
@@ -1768,13 +1833,17 @@ def lstm_phase():
             "flash_attention_bwd": K1_PER_MICROBATCH * ACCUM,
             "fused_bottleneck": K3_PER_MICROBATCH * ACCUM}
     named = dict(model.named_parameters())
-    still = [n for n, p in lstm.items() if torch.equal(named[n].detach(), p)]
-    if launched != want or not np.isfinite(loss) or still:
+    inputs = [n for n in lstm if n.endswith("bias_ih_l0")]
+    still = [n for n, p in lstm.items()
+             if n not in inputs and torch.equal(named[n].detach(), p)]
+    nonzero = [n for n in inputs if named[n].detach().count_nonzero().item()]
+    if launched != want or not np.isfinite(loss) or still or nonzero or not inputs:
         raise AssertionError(f"USE_LSTM step: launches {launched} (expected {want}), loss "
-                             f"{loss}, LSTM weights not moved {still[:3]}")
+                             f"{loss}, text-encoder tensors not moved {still[:3]}, input "
+                             f"biases not 0 {nonzero[:3]} of {len(inputs)}")
     print(f"  train step (GRAD_ACCUM {ACCUM}, 2 clips x {TRAIN_FRAMES} frames): loss {loss:.5f}, "
-          f"{step_s:.3f} s (first step), {len(lstm)} text-encoder tensors moved; launches "
-          f"{launched}")
+          f"{step_s:.3f} s (first step), {len(lstm) - len(inputs)} text-encoder tensors moved, "
+          f"{len(inputs)} bias_ih_l0 exactly 0; launches {launched}")
     return _counts()
 
 

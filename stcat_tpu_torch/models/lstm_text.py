@@ -18,7 +18,12 @@ gather computed on the device -- no packed sequences, whose lengths would be
 read on the host -- so every position, the pads' included, equals the JAX
 output. flax's cells keep per-gate kernels in the gate order i, f, g, o,
 torch's order; ``convert.py`` packs them into ``weight_ih`` / ``weight_hh``
-and the hidden biases into ``bias_hh``, leaving ``bias_ih`` at 0.
+and the hidden biases into ``bias_hh``, leaving ``bias_ih`` at 0. flax's
+input kernels have no bias, so ``bias_ih`` takes no gradient
+(``requires_grad`` False) and stays 0 in training: each gate trains one bias,
+as in the JAX encoder. A state_dict whose ``bias_ih`` is not 0 (one trained
+while it still took a gradient) has it folded into ``bias_hh`` when loaded,
+which leaves the forward as it was.
 """
 
 from __future__ import annotations
@@ -47,6 +52,16 @@ def _gather_time(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+@torch.no_grad()
+def _fold_input_bias(encoder: nn.Module, incompatible_keys) -> None:
+    """After a load: each LSTM's bias_ih added into its bias_hh and zeroed
+    (the gates see their sum, so the forward does not change)."""
+    for mod in encoder.children():
+        if isinstance(mod, nn.LSTM):
+            mod.bias_hh_l0.add_(mod.bias_ih_l0)
+            mod.bias_ih_l0.zero_()
+
+
 class LSTMTextEncoder(nn.Module):
     def __init__(self, vocab_size: int, d_model: int, hidden_size: int = 512,
                  embed_dim: int = 300, num_layers: int = 2, bidirectional: bool = True,
@@ -58,10 +73,13 @@ class LSTMTextEncoder(nn.Module):
         width = embed_dim
         for layer in range(num_layers):
             for direction in self._directions():
-                self.add_module(f"{direction}_{layer}", nn.LSTM(width, per_dir, batch_first=True))
+                lstm = nn.LSTM(width, per_dir, batch_first=True)
+                lstm.bias_ih_l0.requires_grad_(False)
+                self.add_module(f"{direction}_{layer}", lstm)
             width = per_dir * len(self._directions())
         self.proj = nn.Linear(width, d_model)
         self._load_glove()
+        self.register_load_state_dict_post_hook(_fold_input_bias)
 
     def _directions(self):
         return ("fwd", "bwd") if self.bidirectional else ("fwd",)

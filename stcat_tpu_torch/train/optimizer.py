@@ -11,10 +11,13 @@ clipping and EMA (the JAX package's train/optimizer.py).
     to base LR x its schedule multiplier at the step count (the first step
     uses the multiplier of step 0), then the optimizer core;
   * cores, torch semantics (the JAX package's optax chain is pinned to them by
-    tests/test_train_step.py): AdamW (decoupled weight decay), Adam (L2 added
-    to the gradient), RMSprop (alpha 0.99, eps 1e-8 outside the sqrt), SGD
-    with momentum; frozen parameters are not registered, so they get no
-    update and no weight decay;
+    tests/test_train_step.py): AdamW (decoupled weight decay, computed as the
+    optax chain computes it: ``AdamW`` below), Adam (L2 added to the
+    gradient), RMSprop (alpha 0.99, eps 1e-8 outside the sqrt), SGD with
+    momentum; frozen parameters are not registered, so they get no update
+    and no weight decay; a trainable parameter the loss does not reach (the
+    RoBERTa pooler) steps on a zero gradient, the one jax.grad gives it, so
+    weight decay and the moments reach it as in the optax chain;
   * EMA of every parameter: e = e * decay + (1 - decay) * p.
 
 On a model laid out with tensor parallelism every moment and EMA copy lives
@@ -98,9 +101,55 @@ def current_lrs(cfg, num_training_steps: int) -> Callable[[int], Dict[str, float
     return lambda step: {g: base[g] * gammas[g](step) for g in GROUPS}
 
 
+class AdamW(torch.optim.Optimizer):
+    """AdamW as the optax chain computes it (scale_by_adam, then
+    add_decayed_weights, then the LR): the bias-corrected Adam direction
+    m_hat / (sqrt(v_hat) + eps) plus WD x p, times -lr, added to p.
+    torch.optim.AdamW first multiplies p by 1 - lr x WD, a factor fp32
+    rounds to 1 whenever lr x WD < 3e-8 (the VidSTG recipe's 1e-9 to 1e-8),
+    so it would train without weight decay; here the decay rides in the
+    update, as in optax. The state per parameter is torch's AdamW's ("step",
+    a CPU tensor, "exp_avg", "exp_avg_sq"), so a state saved with torch's
+    AdamW (an earlier checkpoint) loads into it."""
+
+    def __init__(self, params, weight_decay: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, {"lr": 0.0, "betas": betas, "eps": eps,
+                                  "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st.update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p),
+                              exp_avg_sq=torch.zeros_like(p))
+                st["step"] += 1
+            grads = [p.grad for p in params]
+            m, v = [st["exp_avg"] for st in states], [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+            steps = [st["step"].item() for st in states]  # CPU tensors: no wait on the card
+            # one temporary, as torch's AdamW: 1 / (sqrt(v_hat) + eps), then x m_hat
+            update = torch._foreach_div(v, [1 - b2 ** t for t in steps])
+            torch._foreach_sqrt_(update)
+            torch._foreach_add_(update, group["eps"])
+            torch._foreach_reciprocal_(update)
+            torch._foreach_mul_(update, m)
+            torch._foreach_div_(update, [1 - b1 ** t for t in steps])
+            torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+
+
 def _core(name: str, groups: List[Dict], s) -> torch.optim.Optimizer:
     if name == "adamw":
-        return torch.optim.AdamW(groups, weight_decay=s.WEIGHT_DECAY)
+        return AdamW(groups, weight_decay=s.WEIGHT_DECAY)
     if name == "adam":
         return torch.optim.Adam(groups, weight_decay=s.WEIGHT_DECAY)
     if name == "rmsprop":
@@ -163,12 +212,15 @@ class GroupedOptimizer:
     def step(self) -> None:
         for p in self.frozen:
             p.grad = None
+        for p in self.trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.model_group is None:
             torch.nn.utils.clip_grad_norm_(self.trainable, self.max_grad_norm)
         else:
             total = self._sq_norms(self.trainable).sum().sqrt()
             coef = (self.max_grad_norm / (total + 1e-6)).clamp(max=1.0)
-            torch._foreach_mul_([p.grad for p in self.trainable if p.grad is not None], coef)
+            torch._foreach_mul_([p.grad for p in self.trainable], coef)
         lrs = self.lrs_at(self.count)
         for group in self.core.param_groups:
             group["lr"] = lrs[group["name"]]
@@ -187,6 +239,12 @@ class GroupedOptimizer:
             raise ValueError(f"optimizer groups {list(sd['groups'])} in the state, "
                              f"{groups} in this optimizer")
         self.core.load_state_dict(sd["core"])
+        # a parameter that takes no gradient (an LSTM's input bias, trained
+        # in states saved before it was fixed at 0) restarts from zero
+        # moments, so its zero gradient leaves it where it is
+        for p in self.trainable:
+            if not p.requires_grad:
+                self.core.state.pop(p, None)
         self.count = int(sd["count"])
 
 

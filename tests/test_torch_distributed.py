@@ -25,8 +25,8 @@ import torch
 from helpers import tiny_cfg
 from stcat_tpu.data import synthetic as jsyn
 from test_torch_train import NO_DROPOUT, SLICE, _jax_inputs, clip_arrays, jax_variables, port_cfg
-from torch_dist_worker import (change_errors, fail_on_rank_one, generator, run_layout,
-                               state_digests)
+from torch_dist_worker import (CHANGE_TOL, change_errors, fail_on_rank_one, generator,
+                               noise_leaves, run_layout, state_digests)
 
 from stcat_tpu_torch.config import merge_from_list
 from stcat_tpu_torch.convert import from_jax_variables
@@ -61,14 +61,6 @@ LAYOUTS = {
 def _ref(layout: str) -> str:
     return "dropout" if "dropout" in layout else "plain"
 ITEMS = 5  # synthetic test items
-# A leaf whose single-process gradient has an RMS below this is rounding
-# noise (fp32's unit roundoff is 1.2e-7): the gradient of something the loss
-# does not depend on, such as an attention key's bias, which shifts every
-# logit of a query alike. Adam's first steps turn such noise into +-LR
-# steps of either sign, so these leaves are held to the absolute bound only.
-# At these widths they read <= 1.6e-8 and the smallest real gradient 7.9e-6.
-NOISE_RMS = 1e-7
-CHANGE_TOL = 5e-3  # relative, on each leaf's change from the seeded weights
 
 
 def _cfg(tmp):
@@ -131,15 +123,12 @@ def runs(tmp_path_factory):
         batch, targets = _batch(arrays)
         accumulate_grads(run_cfg, model, opt, batch, targets, generator(run_cfg, 0, 0))
         grad_norms = opt.grad_norms()
-        noise = {n for n, p in model.named_parameters()
-                 if p.grad is not None and p.grad.norm() < NOISE_RMS * p.numel() ** 0.5}
-        unused = {n for n, p in model.named_parameters() if p.requires_grad and p.grad is None}
+        noise = noise_leaves(model)
         losses = [{k: v.item() for k, v in step(state, batch, targets,
                                                 generator(run_cfg, i, 0)).items()}
                   for i in range(STEPS)]
         Checkpointer(str(tmp / ref)).save(STEPS, state, block=True)
-        single[ref] = {"losses": losses, "grad_norms": grad_norms, "noise": noise,
-                       "unused": unused}
+        single[ref] = {"losses": losses, "grad_norms": grad_norms, "noise": noise}
     fwd = make_eval_forward(cfg, fresh, device_split=False)(
         VideoBatch(**{k: torch.from_numpy(v) for k, v in eval_arrays.items()}))
     ev = build_evaluator(cfg)
@@ -171,10 +160,9 @@ def test_data_parallel_steps_match_jax(runs):
     per leaf within 5e-3 (a missing update reads 1, one of the wrong sign
     2); and, as well, every parameter within 5e-3 absolute, the bound of the
     JAX package's own test_tp_train_step_matches_data_parallel. Leaves with
-    a noise gradient (NOISE_RMS) and those that get no gradient are held to
-    the absolute bound only: the RoBERTa pooler's output is unused, so
-    torch's AdamW leaves its weight as it is, where optax decays it by
-    LR x WEIGHT_DECAY per step."""
+    a noise gradient (NOISE_RMS) are held to the absolute bound only. The
+    RoBERTa pooler, whose output the model does not use, is held to both:
+    it steps on a zero gradient, decayed as optax decays it."""
     jlosses, jparams, _ = runs["jax"]
     ranks = runs["layouts"]["data 2"]
     assert ranks[0]["losses"] == ranks[1]["losses"]
@@ -184,7 +172,7 @@ def test_data_parallel_steps_match_jax(runs):
             np.testing.assert_allclose(ours[k], theirs[k], atol=2e-4, rtol=1e-3, err_msg=k)
     plain = runs["single"]["plain"]
     worst = _worst_change(change_errors(ranks[0]["params"], jparams, runs["single"]["init"]),
-                          plain["noise"] | plain["unused"])
+                          plain["noise"])
     assert worst[1] < CHANGE_TOL, worst
     for name, value in ranks[0]["params"].items():
         assert np.abs(value - jparams[name].numpy()).max() < 5e-3, name

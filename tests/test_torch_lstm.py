@@ -5,8 +5,11 @@
 lengths down to 1, every position including the pads) at atol 2e-5; the
 GloVe table; a tiny STCATNet with the LSTM against the JAX model at atol
 2e-4 / rtol 1e-3 (tests/test_full_parity.py's tolerance), weights through
-``from_jax_variables``; then that the variant trains (its gradients reach
-the LSTM, in the text group) and serves.
+``from_jax_variables``; two train steps against the JAX step (flax's one
+bias per gate against the port's ``bias_ih`` + ``bias_hh``); that the
+variant trains (its gradients reach the LSTM, in the text group, and
+``bias_ih`` stays 0), restores a state trained with a nonzero ``bias_ih``
+and serves.
 """
 
 import jax
@@ -20,14 +23,15 @@ from stcat_tpu.core.batch import VideoBatch as JBatch
 from stcat_tpu.models import STCATNet as JNet
 from stcat_tpu.models.lstm_text import LSTMTextEncoder as JEncoder
 from test_torch_model import _batch_arrays, port_cfg
-from test_torch_train import NO_DROPOUT, clip_arrays, port_batch
+from test_torch_train import NO_DROPOUT, SLICE, _jax_inputs, clip_arrays, port_batch
+from torch_dist_worker import CHANGE_TOL, change_errors, noise_leaves
 
 from stcat_tpu_torch.convert import Writer, from_jax_variables, lstm_text
 from stcat_tpu_torch.core.batch import VideoBatch as PBatch
 from stcat_tpu_torch.models import STCATNet as PNet, build_model
 from stcat_tpu_torch.models.lstm_text import LSTMTextEncoder
 from stcat_tpu_torch.train.optimizer import make_optimizer
-from stcat_tpu_torch.train.step import create_train_state, make_train_step
+from stcat_tpu_torch.train.step import accumulate_grads, create_train_state, make_train_step
 
 LSTM = ["MODEL.USE_LSTM", "true", "MODEL.LSTM.HIDDEN_SIZE", 16, "MODEL.LSTM.EMBED_DIM", 12]
 
@@ -104,10 +108,73 @@ def test_stcatnet_with_lstm_matches_jax():
                                        rtol=1e-3, err_msg=f"aux {key}")
 
 
+def test_lstm_variant_two_steps_match_jax():
+    """Two make_train_step steps of the variant (tiny widths, every dropout
+    0, AdamW, WEIGHT_DECAY 1e-2) against the JAX make_train_step on a
+    1-device mesh, from the JAX init's weights (``from_jax_variables``).
+    The losses at rtol 1e-4; each leaf's change from those weights against
+    the JAX step's, relative within 5e-3, and every leaf within 5e-3
+    absolute, as tests/test_torch_distributed.py holds data 2 against JAX
+    (``change_errors``: a missing update reads 1, a doubled one 1 too;
+    leaves with a noise gradient, NOISE_RMS, to the absolute bound only).
+    flax's cell has one bias per gate, its hidden kernel's, held against
+    the port's ``bias_ih_l0 + bias_hh_l0``; ``bias_ih_l0`` stays exactly 0."""
+    from stcat_tpu.core.mesh import make_mesh, replicate, shard_batch
+    from stcat_tpu.train.optimizer import make_optimizer as jmake_opt
+    from stcat_tpu.train.step import create_train_state as jcreate, make_train_step as jmake
+
+    jcfg = tiny_cfg(LSTM + NO_DROPOUT + SLICE + ["SOLVER.WEIGHT_DECAY", 1e-2])
+    arrays = clip_arrays()
+    jb, jt = _jax_inputs(arrays)
+    variables = jax.jit(JNet(jcfg).init)(jax.random.PRNGKey(0), jb)
+    params, consts = variables["params"], variables["constants"]
+    # copies: the JAX step donates the state's buffers
+    np_consts = jax.tree_util.tree_map(np.array, consts)
+    init = from_jax_variables(jax.tree_util.tree_map(np.array, params), np_consts)
+    tx, _ = jmake_opt(jcfg, params, num_training_steps=10)
+    mesh = make_mesh(1)
+    jstate = replicate(jcreate(jcfg, {"params": params, "constants": consts}, tx), mesh)
+    jstep = jmake(jcfg, JNet(jcfg), tx, mesh)
+    jlosses = []
+    for _ in range(2):
+        jstate, m = jstep(jstate, shard_batch(jb, mesh), shard_batch(jt, mesh),
+                          jax.random.PRNGKey(7))
+        jlosses.append(float(m["loss"]))
+
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, jstate.params), np_consts)
+    cfg = port_cfg(jcfg)
+    model = build_model(cfg, device="cpu", seed=0)
+    model.load_state_dict(init, strict=True)
+    opt = make_optimizer(cfg, model, num_training_steps=10)
+    state = create_train_state(cfg, model, opt)
+    step = make_train_step(cfg, model, opt, device="cpu")
+    batch, targets = port_batch(arrays)
+    accumulate_grads(cfg, model, opt, batch, targets)
+    noise = noise_leaves(model)
+    losses = [step(state, batch, targets, torch.Generator().manual_seed(7))["loss"].item()
+              for _ in range(2)]
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+
+    ours = {n: p.detach() for n, p in model.named_parameters()}
+    input_biases = [n for n in ours if n.endswith("bias_ih_l0")]
+    assert input_biases
+    for n in input_biases:
+        assert torch.equal(ours[n], torch.zeros_like(ours[n])), n
+        hidden = n.replace("bias_ih_l0", "bias_hh_l0")
+        ours[hidden] = ours[n] + ours[hidden]
+    errors = change_errors(ours, want, init)
+    worst = max(((n, e) for n, e in errors.items() if n not in noise), key=lambda kv: kv[1])
+    assert worst[1] < CHANGE_TOL, worst
+    for name, value in ours.items():
+        assert (value - want[name]).abs().max().item() < 5e-3, name
+
+
 def test_lstm_variant_trains():
     """Two train steps of the variant: finite losses, every LSTM weight in
-    the text group with a gradient and moved, TEXT_MODEL.FREEZE leaving the
-    LSTM trainable (it freezes only a RoBERTa body, as in the JAX labels)."""
+    the text group with a gradient and moved but each ``bias_ih_l0``, which
+    stays exactly 0 (flax's input kernels have no bias), TEXT_MODEL.FREEZE
+    leaving the LSTM trainable (it freezes only a RoBERTa body, as in the
+    JAX labels)."""
     cfg = port_cfg(tiny_cfg(LSTM + NO_DROPOUT + ["MODEL.TEXT_MODEL.FREEZE", "true"]))
     model = build_model(cfg, device="cpu", seed=0)
     opt = make_optimizer(cfg, model, num_training_steps=10)
@@ -121,7 +188,53 @@ def test_lstm_variant_trains():
         losses = step(state, batch, targets, torch.Generator().manual_seed(0))
         assert np.isfinite(losses["loss"].item())
     named = dict(model.named_parameters())
-    assert [n for n in lstm if not torch.equal(named[n].detach(), before[n])] == lstm
+    input_biases = [n for n in lstm if n.endswith("bias_ih_l0")]
+    assert input_biases
+    assert [n for n in lstm if not torch.equal(named[n].detach(), before[n])] \
+        == [n for n in lstm if n not in input_biases]
+    for n in input_biases:
+        assert torch.equal(named[n].detach(), torch.zeros_like(before[n])), n
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adam"])
+def test_lstm_state_with_trained_input_bias_restores(tmp_path, optimizer):
+    """A checkpoint of the variant trained while ``bias_ih_l0`` still took
+    a gradient (nonzero input biases and their moments) restores into the
+    model: each input bias folded into its hidden one (the text encoder's
+    output at atol 1e-6, fp32 sums in another order), ``bias_ih_l0`` 0, and
+    exactly 0 after a further step (adam's stale moments are dropped)."""
+    from stcat_tpu_torch.train.checkpoint import Checkpointer
+
+    cfg = port_cfg(tiny_cfg(LSTM + NO_DROPOUT + ["SOLVER.OPTIMIZER", optimizer]))
+    batch, targets = port_batch(clip_arrays())
+
+    def train_state():
+        model = build_model(cfg, device="cpu", seed=0)
+        opt = make_optimizer(cfg, model, num_training_steps=10)
+        return create_train_state(cfg, model, opt), make_train_step(cfg, model, opt, device="cpu")
+
+    old, old_step = train_state()
+    inputs = [p for n, p in old.model.named_parameters() if n.endswith("bias_ih_l0")]
+    for p in inputs:
+        p.requires_grad_(True)
+    old_step(old, batch, targets)
+    assert all(p.abs().max() > 0 for p in inputs)
+    Checkpointer(str(tmp_path)).save(1, old, block=True)
+
+    new, new_step = train_state()
+    Checkpointer(str(tmp_path)).restore(new)
+    encoders = old.model.text_encoder.eval(), new.model.text_encoder.eval()
+    with torch.no_grad():
+        (f0, c0), (f1, c1) = (e(batch.token_ids, batch.token_valid) for e in encoders)
+    torch.testing.assert_close(f1, f0, rtol=0, atol=1e-6)
+    torch.testing.assert_close(c1, c0, rtol=0, atol=1e-6)
+    named = dict(new.model.named_parameters())
+    input_names = [n for n in named if n.endswith("bias_ih_l0")]
+    for n in input_names:
+        assert torch.equal(named[n], torch.zeros_like(named[n])), n
+    new_step(new, batch, targets)
+    for n in input_names:
+        assert torch.equal(named[n].detach(), torch.zeros_like(named[n])), n
 
 
 def test_lstm_variant_serves():

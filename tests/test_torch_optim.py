@@ -183,14 +183,15 @@ def _jax_tree(arrays):
     return tree
 
 
-@pytest.mark.parametrize("name", ["adamw", "adam", "rmsprop", "sgd"])
-def test_optimizer_matches_jax_over_three_steps(name):
-    """make_optimizer's updates against the JAX optax chain fed the same
-    gradients for 3 steps, on parameters named like the model's groups
-    (tests/test_train_step.py holds optax against torch.optim the same way):
-    warmup, an LR drop, per-group LRs, clipping over the trainable parameters
-    only (frozen gradients are huge and must not count), weight decay. The
-    labels of both sides agree. rtol 2e-5 / atol 2e-6, as there."""
+# a text-group leaf the loss does not reach (as the RoBERTa pooler's output
+# is not used): no gradient in the port, jax.grad's zero one in optax
+NO_GRAD_LEAF = "text_encoder.resizer.fc.weight"
+
+
+def _three_steps_against_optax(name, no_grad=()):
+    """make_optimizer and the JAX optax chain over the same gradients for 3
+    steps; the leaves named in ``no_grad`` get ``.grad = None`` in the port
+    and a zero gradient in optax. Every leaf at rtol 2e-5 / atol 2e-6."""
     from stcat_tpu.train.optimizer import make_optimizer as jmake
 
     jcfg = tiny_cfg(["SOLVER.OPTIMIZER", name, "SOLVER.BASE_LR", 1e-2,
@@ -214,15 +215,128 @@ def test_optimizer_matches_jax_over_three_steps(name):
         rng = np.random.RandomState(100 + step)
         grads = {n: rng.randn(*a.shape).astype(np.float32)
                  * (1e6 if opt.labels[n] == "frozen" else 1.0) for n, a in arrays.items()}
+        for n in no_grad:
+            grads[n] = np.zeros_like(grads[n])
         updates, state = tx.update(_jax_tree(grads), state, params)
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         opt.zero_grad()
         for n, g in grads.items():
-            named[n].grad = T(g)
+            named[n].grad = None if n in no_grad else T(g)
         opt.step()
     for n, p in named.items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(_at(params, OPT_PARAMS[n])),
                                    rtol=2e-5, atol=2e-6, err_msg=n)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam", "rmsprop", "sgd"])
+def test_optimizer_matches_jax_over_three_steps(name):
+    """make_optimizer's updates against the JAX optax chain fed the same
+    gradients for 3 steps, on parameters named like the model's groups
+    (tests/test_train_step.py holds optax against torch.optim the same way):
+    warmup, an LR drop, per-group LRs, clipping over the trainable parameters
+    only (frozen gradients are huge and must not count), weight decay. The
+    labels of both sides agree. rtol 2e-5 / atol 2e-6, as there."""
+    _three_steps_against_optax(name)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adam", "rmsprop", "sgd"])
+def test_optimizer_steps_a_leaf_without_gradient_as_jax(name):
+    """The same 3 steps with a trainable text-group leaf that gets no
+    gradient (``.grad`` None after the backward, as the RoBERTa pooler's):
+    the port steps it on a zero gradient, as optax does on jax.grad's zero
+    one, so adamw decays it by (1 - lr x WD) and adam, rmsprop and sgd take
+    the L2 term through the core. Every leaf at rtol 2e-5 / atol 2e-6."""
+    _three_steps_against_optax(name, no_grad=(NO_GRAD_LEAF,))
+
+
+def test_adamw_decays_at_the_recipe_lr_times_wd():
+    """500 AdamW steps at the VidSTG recipe's BASE_LR x WEIGHT_DECAY (1e-4 x
+    1e-4 = 1e-8 per step, below fp32's resolution of a weight) on one leaf,
+    fed the same gradients as the JAX optax chain: the weight decay the port
+    applies, read as the shift of the weights along -p against the same run
+    at WEIGHT_DECAY 0, is lr x WD x steps x |p| within 2%, and the JAX
+    chain's within 2%. torch.optim.AdamW's factor 1 - lr x WD rounds to 1 in
+    fp32, so its shift reads 0 (the element-wise gap to JAX after 500 steps
+    is rounding noise of the Adam steps, the same at WEIGHT_DECAY 0)."""
+    from stcat_tpu.train.optimizer import make_optimizer as jmake
+
+    name, steps, lr, wd = "bbox_embed.layers.0.weight", 500, 1e-4, 1e-4
+    rng = np.random.RandomState(0)
+    p0 = (rng.randn(100, 50) * 0.02).astype(np.float32)
+    grads = [rng.randn(100, 50).astype(np.float32) for _ in range(20)]
+
+    def run(decay):
+        jcfg = tiny_cfg(["SOLVER.OPTIMIZER", "adamw", "SOLVER.BASE_LR", lr,
+                         "SOLVER.WEIGHT_DECAY", decay, "SOLVER.WARMUP_PROP", 0.0,
+                         "SOLVER.SCHEDULE.TYPE", "multistep_with_warmup_all"])
+        params = _jax_tree({name: p0})
+        tx, _ = jmake(jcfg, params, num_training_steps=10 * steps)
+        state = tx.init(params)
+
+        @jax.jit
+        def jstep(g, state, params):
+            updates, state = tx.update(_jax_tree({name: g}), state, params)
+            return jax.tree_util.tree_map(lambda p, u: p + u, params, updates), state
+
+        model = _named_module({name: p0})
+        param = dict(model.named_parameters())[name]
+        opt = make_optimizer(port_cfg(jcfg), model, 10 * steps)
+        for t in range(steps):
+            params, state = jstep(jnp.asarray(grads[t % 20]), state, params)
+            opt.zero_grad()
+            param.grad = T(grads[t % 20].copy())
+            opt.step()
+        return (param.detach().numpy().astype(np.float64),
+                np.asarray(_at(params, OPT_PARAMS[name]), np.float64))
+
+    (ours, theirs), (ours0, theirs0) = run(wd), run(0.0)
+    unit = p0.astype(np.float64) / np.linalg.norm(p0)
+    want = lr * wd * steps * np.linalg.norm(p0)
+    shift = float(np.sum((ours0 - ours) * unit))
+    np.testing.assert_allclose(shift, want, rtol=2e-2)
+    np.testing.assert_allclose(shift, float(np.sum((theirs0 - theirs) * unit)), rtol=2e-2)
+
+
+def test_adamw_resumes_a_torch_adamw_state():
+    """A GroupedOptimizer state whose core was torch.optim.AdamW (the
+    port's checkpoints before its own AdamW) loads into make_optimizer's:
+    3 steps with torch's core, torch.save, torch.load, then one more step
+    on both sides agrees at atol 1e-6 (the cores round the moments and the
+    decay in another order; moments or a step count not carried over would
+    move a leaf by about the LR, 4e-3)."""
+    import io
+
+    cfg = port_cfg(tiny_cfg(["SOLVER.BASE_LR", 1e-2, "SOLVER.WEIGHT_DECAY", 1e-2,
+                             "SOLVER.WARMUP_PROP", 0.5, "SOLVER.MAX_GRAD_NORM", 0.1]))
+    rng = np.random.RandomState(0)
+    arrays = {n: rng.randn(7 + i, 3).astype(np.float32) for i, n in enumerate(OPT_PARAMS)}
+    grads = [{n: rng.randn(*a.shape).astype(np.float32) for n, a in arrays.items()}
+             for _ in range(4)]
+    old_model, new_model = _named_module(arrays), _named_module(arrays)
+    old = make_optimizer(cfg, old_model, num_training_steps=10)
+    old.core = torch.optim.AdamW(old.core.param_groups, weight_decay=1e-2)
+
+    def step(model, opt, g):
+        opt.zero_grad()
+        for n, p in model.named_parameters():
+            p.grad = T(g[n].copy())
+        opt.step()
+
+    for g in grads[:3]:
+        step(old_model, old, g)
+    new = make_optimizer(cfg, new_model, num_training_steps=10)
+    with torch.no_grad():
+        for p, q in zip(new_model.parameters(), old_model.parameters()):
+            p.copy_(q)
+    buf = io.BytesIO()
+    torch.save(old.state_dict(), buf)
+    buf.seek(0)
+    new.load_state_dict(torch.load(buf))
+    step(old_model, old, grads[3])
+    step(new_model, new, grads[3])
+    assert new.count == old.count == 4
+    for (n, p), q in zip(new_model.named_parameters(), old_model.parameters()):
+        torch.testing.assert_close(p, q, rtol=0, atol=1e-6, msg=n)
 
 
 @pytest.mark.parametrize("stype", ["multistep_with_warmup", "multistep_with_warmup_all",

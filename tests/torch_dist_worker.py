@@ -48,6 +48,23 @@ def _max_diffs(ours: dict, ref: dict) -> dict:
     return {k: (v.float() - ref[k].float()).abs().max().item() for k, v in ours.items()}
 
 
+# A leaf whose single-process gradient has an RMS below this is rounding
+# noise (fp32's unit roundoff is 1.2e-7): the gradient of something the loss
+# does not depend on, such as an attention key's bias, which shifts every
+# logit of a query alike. Adam's first steps turn such noise into +-LR
+# steps of either sign, so these leaves are held to the absolute bound only.
+# At tests/test_torch_distributed.py's widths they read <= 1.6e-8 and the
+# smallest real gradient 7.9e-6.
+NOISE_RMS = 1e-7
+CHANGE_TOL = 5e-3  # relative, on each leaf's change from the seeded weights
+
+
+def noise_leaves(model: torch.nn.Module) -> set:
+    """The parameters whose ``.grad`` has an RMS below NOISE_RMS."""
+    return {n for n, p in model.named_parameters()
+            if p.grad is not None and p.grad.norm() < NOISE_RMS * p.numel() ** 0.5}
+
+
 def change_errors(ours: dict, ref: dict, init: dict) -> dict:
     """Per leaf, how far this run's change from ``init`` is from the
     reference's: |(ours - init) - (ref - init)| / |ref - init| (Frobenius
