@@ -98,11 +98,21 @@ Phases (any failure exits non-zero; no phase's error is caught):
      process's) and each collective's calls and bytes; then a world of one
      over NCCL takes the data-parallel step, held to the single-process one,
      and a second step under the sync check.
+  10. learning: tests/test_learning.py's proof on the card
+     (tests/torch_learning.py): the tiny model with TPU.CONV_IMPL pallas
+     trains 900 iterations through train.loop.train on two synthetic clips
+     that share one span, under deterministic algorithms, and is validated
+     on them in fp32 and, with the same weights, in bf16 compute: m_vIoU >
+     0.30, declar and inter vIoU > 0.15 each, vIoU and tIoU drift < 0.05;
+     K3 once per training forward, K1 and K3 in both validations, K2 never
+     (STCAT.DROPOUT 0.1 sends training attention to the plain route, as in
+     JAX); iteration and validation seconds, the metrics, both drifts and
+     peak memory.
 Every phase prints its seconds. The line before the last is a JSON object
 listing every kernel's numbers, with its launches on each phase's path
-(launches_by_path: serving, training, loop, cli, lstm, inputs, distributed;
-distributed_launches_per_rank by layout); the last line is the device
-record.
+(launches_by_path: serving, training, loop, cli, lstm, inputs, distributed,
+learning; distributed_launches_per_rank by layout); the last line is the
+device record.
 """
 
 from __future__ import annotations
@@ -1847,6 +1857,81 @@ def lstm_phase():
     return _counts()
 
 
+# phase 10: the tiny model of tests/torch_learning.py with every kernel route on
+LEARNING_OPTS = ("TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]")
+LEARNING_K3_PER_ITER = 1  # depths [1,1,1,1]: layer1's first block is the one stride-1 block
+
+
+def learning_phase():
+    """tests/test_learning.py's learning proof on the card: the tiny model
+    trains 900 iterations on two synthetic clips that share one span, then
+    is evaluated on them in fp32 and, with the same weights, in bf16 compute
+    (tests/torch_learning.py, held to that test's thresholds), with K3 on
+    the backbone's stride-1 block. STCAT.DROPOUT 0.1 sends every training
+    attention call to the plain route, as in JAX, so K1 serves both
+    validations and K2 never launches; K3 runs once per training forward
+    (its backward is the plain recompute) and in both validations."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_learning
+
+    saved = torch_learning.run_validation
+    val_launches = []
+
+    def run_validation(*args, **kwargs):
+        before = _counts()
+        res = saved(*args, **kwargs)
+        val_launches.append(_launched(before))
+        return res
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_learning_")
+    # deterministic algorithms: a rerun on this card reaches the same metrics
+    # (cuBLAS needs a fixed workspace for that; warn_only names any op without one)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch_learning.run_validation = run_validation
+        torch.cuda.reset_peak_memory_stats()
+        for counter in KERNEL_COUNTERS.values():
+            counter.reset()
+        out = torch_learning.overfit(tmp, device=DEVICE, extra=LEARNING_OPTS)
+        launches = _counts()
+        with open(os.path.join(tmp, "out", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch_learning.run_validation = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    iters = out["iterations"]
+    trained = {k: v - sum(val[k] for val in val_launches) for k, v in launches.items()}
+    res, res_bf16 = out["res"], out["res_bf16"]
+
+    def tiou(r):
+        return float(np.mean([v for k, v in r.items() if k.endswith("tiou")]))
+
+    print(f"  {iters} iterations in {out['train_s']:.1f} s ({out['train_s'] / iters * 1e3:.1f} ms "
+          f"per iteration, model build and data included); loss {rows[0]['loss']:.4f} at "
+          f"{rows[0]['step']}, {rows[-1]['loss']:.4f} at {rows[-1]['step']}; peak memory "
+          f"{peak:.3f} GiB")
+    for label, r, secs in (("fp32", res, out["val_s"]), ("bf16", res_bf16, out["val_bf16_s"])):
+        print(f"  validation {label} in {secs:.3f} s: m_vIoU {torch_learning.viou(r):.4f}, "
+              f"declar_viou {r['declar_viou']:.4f}, inter_viou {r['inter_viou']:.4f}, m_tIoU "
+              f"{tiou(r):.4f}")
+    print(f"  bf16 - fp32: vIoU drift {out['viou_drift']:.4f}, largest tIoU drift "
+          f"{out['tiou_drift']:.4f} (limits {torch_learning.MAX_BF16_DRIFT}); every metric "
+          + ", ".join(f"{k} {v:+.4f}" for k, v in sorted(out["drift"].items())))
+    print(f"  launches: training {trained}, validations {val_launches}")
+    torch_learning.check(out)
+    want = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "fused_bottleneck": LEARNING_K3_PER_ITER * iters}
+    if trained != want or len(val_launches) != 2 or any(
+            v["flash_attention"] <= 0 or v["fused_bottleneck"] <= 0
+            or v["flash_attention_bwd"] != 0 for v in val_launches):
+        raise AssertionError(f"learning launches: training {trained} (expected {want}), "
+                             f"validations {val_launches} (K1 and K3 > 0, K2 0 in each)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1939,6 +2024,13 @@ def main() -> int:
     t0 = time.time()
     dist = dist_phase()
     print(f"distributed phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("learning: the tiny model overfits two clips for 900 iterations (tests/"
+          "test_learning.py's proof), validated in fp32 and bf16:")
+    t0 = time.time()
+    learned = learning_phase()
+    print(f"learning phase took {time.time() - t0:.1f} s")
 
     per_fwd = ("bf16 CUDA-event times summed over one served forward's calls at the serving "
                "path's shapes (4 lanes x 64 frames)")
@@ -1958,7 +2050,8 @@ def main() -> int:
         per_rank = {layout: [r[name] for r in ranks] for layout, ranks in dist.items()}
         by_path = {"serving": served[name], "training": trained[name], "loop": looped[name],
                    "cli": clis[name], "lstm": lstm[name], "inputs": inputs[name],
-                   "distributed": sum(sum(v) for v in per_rank.values())}
+                   "distributed": sum(sum(v) for v in per_rank.values()),
+                   "learning": learned[name]}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

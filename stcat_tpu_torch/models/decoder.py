@@ -165,7 +165,8 @@ class SpatialDecoder(nn.Module):
         super().__init__()
         self.d_model, self.query_dim = d_model, query_dim
         self.query_scale = MLP(d_model, d_model, d_model, 2)
-        self.ref_point_head = MLP(2 * d_model, d_model, d_model, 2)
+        # anchor_sine_embedding gives d_model // 2 features per anchor coordinate
+        self.ref_point_head = MLP(query_dim * d_model // 2, d_model, d_model, 2)
         self.norm = LayerNorm(d_model, eps=1e-5)
         self.layers = nn.ModuleList(
             SpatialDecoderLayer(d_model, num_heads, ffn_dim, dropout, from_scratch,
@@ -180,7 +181,7 @@ class SpatialDecoder(nn.Module):
         hs_layers, ref_layers = [], [anchors]
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
-            sine2d = anchor_sine_embedding(anchors, d_half=d // 2)   # [B, T, 2d]
+            sine2d = anchor_sine_embedding(anchors, d_half=d // 2)   # [B, T, query_dim * d / 2]
             query_pos = self.ref_point_head(sine2d)
             pos_transform = 1.0 if i == 0 else self.query_scale(tgt)
             query_sine = sine2d[..., :d] * pos_transform

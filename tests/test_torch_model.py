@@ -57,10 +57,15 @@ def _assert_close(ours, theirs, name):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("from_scratch", [True, False])
-def test_stcatnet_matches_jax(from_scratch):
+@pytest.mark.parametrize("from_scratch, extra", [
+    pytest.param(True, [], id="True"),
+    pytest.param(False, [], id="False"),
+    # two anchor coordinates: ref_point_head takes d (not 2d) sine features
+    pytest.param(True, ["MODEL.STCAT.QUERY_DIM", "2"], id="query_dim_2"),
+])
+def test_stcatnet_matches_jax(from_scratch, extra):
     jcfg = tiny_cfg(["MODEL.STCAT.FROM_SCRATCH", str(from_scratch).lower(),
-                     "TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]"])
+                     "TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]"] + extra)
     arrays = _batch_arrays()
     jbatch = JBatch(**{k: jnp.asarray(v) for k, v in arrays.items()})
     jmodel = JNet(jcfg)
@@ -87,6 +92,7 @@ def test_stcatnet_matches_jax(from_scratch):
     [],
     ["MODEL.STCAT.FROM_SCRATCH", "false", "MODEL.VISION_BACKBONE.POS_ENC", "learned",
      "MODEL.STCAT.USE_LEARN_TIME_EMBED", "true"],
+    ["MODEL.STCAT.QUERY_DIM", "2"],
 ])
 def test_state_dict_round_trips_through_reference_converter(extra):
     """from_jax_variables(convert_reference_stcat(sd)) == sd: the port's
@@ -162,3 +168,4 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         with pytest.raises(RuntimeError, match="CUDA"):
             importlib.import_module(f"stcat_tpu_torch.cli.{cli}").main(argv)
     assert next(build_model(cfg, device="cpu").parameters()).device.type == "cpu"
+
