@@ -10,7 +10,7 @@ from torch import nn
 
 from ..core import mesh as meshlib
 from ..ops.misc import resolve_device
-from .attention import Linear, MultiHeadAttention
+from .attention import Linear, MultiHeadAttention, lecun_normal_, xavier_uniform_
 from .lstm_text import LSTMTextEncoder
 from .position2d import PositionEncoding2D
 from .stcat import STCATNet
@@ -19,10 +19,14 @@ from .stcat import STCATNet
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Fresh weights drawn from ``generator`` (on the CPU, so a seed gives the
-    same weights on every device): lecun-normal matrices and convolutions,
-    zero biases, unit norms, normal(0, 1) learned tokens and tables,
-    uniform[0, 1) learned 2-D position tables. FrozenBN buffers stay the
-    identity. An LSTM text encoder draws its own (``init_weights``)."""
+    same weights on every device) from the JAX package's distributions:
+    each ``Linear`` by its ``init`` (lecun-normal or xavier-uniform), every
+    other matrix, convolution and attention input projection lecun-normal
+    (truncated at 2 sigma; fan_in kh x kw x Cin for a convolution, d_model
+    for each of q, k and v), zero biases, unit norms, normal(0, 1) learned
+    tokens and time tables, normal(0, 1 / dim) text embeddings, uniform[0, 1)
+    learned 2-D position tables. FrozenBN buffers stay the identity. An LSTM
+    text encoder draws its own (``init_weights``)."""
 
     def normal_(t: torch.Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator) * std)
@@ -35,10 +39,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             mod.init_weights(generator)
             owned.append(name + ".")
         elif isinstance(mod, MultiHeadAttention):
-            normal_(mod.in_proj_weight, 1.0 / math.sqrt(mod.d_model))
+            lecun_normal_(mod.in_proj_weight, mod.d_model, generator)
             mod.in_proj_bias.zero_()
         elif isinstance(mod, (nn.Linear, nn.Conv2d)):
-            normal_(mod.weight, 1.0 / math.sqrt(mod.weight[0].numel()))
+            if getattr(mod, "init", "lecun") == "xavier":
+                xavier_uniform_(mod.weight, generator)
+            else:
+                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):

@@ -20,6 +20,7 @@ attention weights are averaged over every head of the group.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -120,6 +121,25 @@ class _PartialProduct(torch.autograd.Function):
         return gx, gw
 
 
+# std of the unit normal truncated to [-2, 2]: flax's truncated-normal
+# initialisers divide by it to keep the std they are asked for
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: the unit normal truncated to [-2, 2], scaled
+    to std 1 / sqrt(fan_in)."""
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    t.mul_(1.0 / (TRUNCATED_STD * math.sqrt(fan_in)))
+
+
+def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``xavier_uniform`` of a [out, in] weight: uniform on
+    +-sqrt(6 / (fan_in + fan_out))."""
+    bound = math.sqrt(6.0 / sum(t.shape))
+    t.uniform_(-bound, bound, generator=generator)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in a given dtype (params stay fp32), like a flax
     Dense with ``dtype``: input, weight and bias are cast down, the result
@@ -130,11 +150,17 @@ class Linear(nn.Linear):
     compute-dtype operands is one GEMM with an fp32 result
     (``_PartialProduct``), summed over the group, the (replicated) bias
     added and the result rounded once, as one process's GEMM rounds its
-    fp32 sum once."""
+    fp32 sum once.
 
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+    ``init`` names the distribution of a fresh weight, read by
+    ``models.init_parameters``: "lecun" (flax's default kernel init) or
+    "xavier" (where the JAX package passes ``kernel_init=xavier_uniform``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 init: str = "lecun"):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+        self.init = init
         self.row_parallel = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

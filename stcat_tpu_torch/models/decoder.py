@@ -39,7 +39,8 @@ class MLP(nn.Module):
         super().__init__()
         self.dropout = dropout
         dims = [din] + [hidden] * (num_layers - 1) + [dout]
-        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(Linear(a, b, init="xavier")
+                                    for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         for i, layer in enumerate(self.layers):
@@ -56,10 +57,10 @@ class TemplateGenerator(nn.Module):
 
     def __init__(self, d_model: int, query_dim: int = 4):
         super().__init__()
-        self.content_proj = Linear(d_model, d_model)
-        self.gamma_proj = Linear(d_model, d_model)
-        self.beta_proj = Linear(d_model, d_model)
-        self.anchor_proj = Linear(d_model, query_dim)
+        self.content_proj = Linear(d_model, d_model, init="xavier")
+        self.gamma_proj = Linear(d_model, d_model, init="xavier")
+        self.beta_proj = Linear(d_model, d_model, init="xavier")
+        self.anchor_proj = Linear(d_model, query_dim, init="xavier")
 
     def forward(self, frames_cls, videos_cls):
         gamma = torch.tanh(self.gamma_proj(videos_cls))
@@ -82,8 +83,8 @@ class SpatialDecoderLayer(nn.Module):
         for name in ("sa_qcontent_proj", "sa_qpos_proj", "sa_qtime_proj", "sa_kcontent_proj",
                      "sa_kpos_proj", "sa_ktime_proj", "sa_v_proj", "ca_qcontent_proj",
                      "ca_kcontent_proj", "ca_kpos_proj", "ca_v_proj", "ca_qpos_sine_proj"):
-            self.add_module(name, Linear(d, d))
-        self.ca_qpos_proj = Linear(d, d) if has_ca_qpos_proj else None
+            self.add_module(name, Linear(d, d, init="xavier"))
+        self.ca_qpos_proj = Linear(d, d, init="xavier") if has_ca_qpos_proj else None
         self.self_attn = MultiHeadAttention(d, num_heads, dropout, dtype=dtype)
         if from_scratch:
             self.cross_attn = ProjectionFreeAttention(d, num_heads, dropout, dtype=dtype,
@@ -92,9 +93,9 @@ class SpatialDecoderLayer(nn.Module):
             # pretrained-init mode: a standard projected MHA (reference name)
             self.cross_attn_image = MultiHeadAttention(d, num_heads, dropout, dtype=dtype,
                                                        impl=impl)
-            self.ca_qtime_proj = Linear(d, d)
-        self.linear1 = Linear(d, ffn_dim)
-        self.linear2 = Linear(ffn_dim, d)
+            self.ca_qtime_proj = Linear(d, d, init="xavier")
+        self.linear1 = Linear(d, ffn_dim, init="xavier")
+        self.linear2 = Linear(ffn_dim, d, init="xavier")
         self.norm1 = LayerNorm(d, eps=1e-5)
         self.norm3 = LayerNorm(d, eps=1e-5)
         self.norm4 = LayerNorm(d, eps=1e-5)
@@ -207,8 +208,8 @@ class TimeDecoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, dtype=dtype)
         self.cross_attn_image = MultiHeadAttention(d_model, num_heads, dropout, dtype=dtype,
                                                    impl=impl)
-        self.linear1 = Linear(d_model, ffn_dim)
-        self.linear2 = Linear(ffn_dim, d_model)
+        self.linear1 = Linear(d_model, ffn_dim, init="xavier")
+        self.linear2 = Linear(ffn_dim, d_model, init="xavier")
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm3 = LayerNorm(d_model, eps=1e-5)
         self.norm4 = LayerNorm(d_model, eps=1e-5)

@@ -34,8 +34,8 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, dtype=dtype, impl=impl)
-        self.linear1 = Linear(d_model, ffn_dim, dtype=dtype)
-        self.linear2 = Linear(ffn_dim, d_model, dtype=dtype)
+        self.linear1 = Linear(d_model, ffn_dim, dtype=dtype, init="xavier")
+        self.linear2 = Linear(ffn_dim, d_model, dtype=dtype, init="xavier")
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.tp = None

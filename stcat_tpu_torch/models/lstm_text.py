@@ -36,6 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .attention import lecun_normal_
+
 
 def load_glove_embedding(path: str, vocab_size: int, embed_dim: int = 300) -> Optional[np.ndarray]:
     """A [vocab, embed_dim] GloVe matrix from a local .npy; None if there is none."""
@@ -94,22 +96,22 @@ class LSTMTextEncoder(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX init's distributions, drawn from ``generator``: the GloVe
-        table where there is one, else normal(0, 1 / embed_dim) embeddings;
-        lecun-normal input kernels and projection, an orthogonal recurrent
-        kernel per gate, zero biases."""
-        def normal_(t: torch.Tensor, fan_in: int) -> None:
-            t.copy_(torch.randn(t.shape, generator=generator) / math.sqrt(fan_in))
-
+        table where there is one, else normal(0, 1 / embed_dim) embeddings
+        (untruncated, as flax's ``variance_scaling(..., "normal")``);
+        lecun-normal input kernels and projection (truncated at 2 sigma), an
+        orthogonal recurrent kernel per gate, zero biases."""
         if not self._load_glove():
-            normal_(self.embedding.weight, self.embedding.embedding_dim)
+            self.embedding.weight.copy_(torch.randn(self.embedding.weight.shape,
+                                                    generator=generator)
+                                        / math.sqrt(self.embedding.embedding_dim))
         for mod in self.children():
             if isinstance(mod, nn.LSTM):
-                normal_(mod.weight_ih_l0, mod.input_size)
+                lecun_normal_(mod.weight_ih_l0, mod.input_size, generator)
                 for gate in mod.weight_hh_l0.chunk(4):
                     nn.init.orthogonal_(gate, generator=generator)
                 mod.bias_ih_l0.zero_()
                 mod.bias_hh_l0.zero_()
-        normal_(self.proj.weight, self.proj.in_features)
+        lecun_normal_(self.proj.weight, self.proj.in_features, generator)
         self.proj.bias.zero_()
 
     def forward(self, token_ids: torch.Tensor, token_valid: torch.Tensor,

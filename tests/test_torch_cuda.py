@@ -18,13 +18,17 @@ in either dtype.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import torch_grad_check as gc
+from chip_smoke import plain_kernels
 from stcat_tpu_torch.kernels import attention as pka
 from stcat_tpu_torch.kernels import bottleneck as pkb
+from torch_grad_check import tiny_cfg
 
 TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
@@ -38,21 +42,6 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
-
-
-def tiny_cfg(extra=()):
-    """The port's config at tiny widths, fp32, every kernel route on."""
-    from stcat_tpu_torch.config import default_config, merge_from_list
-
-    return merge_from_list(default_config(), [
-        "MODEL.VISION_BACKBONE.NAME", "resnet50", "MODEL.VISION_BACKBONE.DEPTHS", "[1,1,1,1]",
-        "MODEL.STCAT.ENC_LAYERS", 2, "MODEL.STCAT.DEC_LAYERS", 2, "MODEL.STCAT.HIDDEN", 64,
-        "MODEL.STCAT.HEADS", 4, "MODEL.STCAT.FFN_DIM", 128, "INPUT.MAX_VIDEO_LEN", 32,
-        "MODEL.TEXT_MODEL.VOCAB_SIZE", 128, "MODEL.TEXT_MODEL.HIDDEN", 32,
-        "MODEL.TEXT_MODEL.LAYERS", 2, "MODEL.TEXT_MODEL.HEADS", 2,
-        "MODEL.TEXT_MODEL.INTERMEDIATE", 64, "MODEL.TEXT_MODEL.MAX_POS", 64,
-        "TPU.COMPUTE_DTYPE", "float32", "TPU.CONV_IMPL", "pallas", "TPU.CONV_STAGES", "[1,2,3,4]",
-    ] + list(extra))
 
 
 def _rel_err(out, ref):
@@ -407,58 +396,108 @@ def test_tiny_model_kernel_forward_matches_cpu_plain_forward(dev):
                                    atol=2e-4, rtol=1e-3, err_msg=key)
 
 
-def test_tiny_model_training_gradients_on_card_match_cpu(dev):
-    """One training forward+backward of the tiny model (layer2 with a
-    trainable fused block, every kernel route on, fp32, no dropout): the
-    card (K1, K2, K3 and the K3 recompute) against the CPU's plain versions.
-    Loss at rtol 1e-4; every gradient at atol 2e-4 / rtol 1e-3, the model
-    parity tolerance."""
-    from stcat_tpu_torch.core.batch import VideoBatch, VideoTargets
-    from stcat_tpu_torch.models import build_model
-    from stcat_tpu_torch.train.optimizer import make_optimizer
-    from stcat_tpu_torch.train.step import accumulate_grads
+def _launch_counts():
+    return pka.LAUNCHES.count, pka.BWD_LAUNCHES.count, pkb.LAUNCHES.count
 
-    cfg = tiny_cfg(["MODEL.VISION_BACKBONE.DEPTHS", "[1,2,1,1]", "MODEL.STCAT.DROPOUT", 0.0,
-                    "MODEL.STCAT.HEAD_DROPOUT", 0.0, "MODEL.TEXT_MODEL.DROPOUT", 0.0,
-                    "TPU.GRAD_ACCUM", 2])
-    rng = np.random.RandomState(4)
-    b, t, h, w, l = 2, 6, 64, 64, 7
-    frame_valid = np.ones((b, t), bool)
-    frame_valid[1, 4:] = False
-    actioness = np.zeros((b, t), np.float32)
-    actioness[0, 1:4] = 1.0
-    actioness[1, 2] = 1.0
-    box_valid = actioness.astype(bool)
-    batch = dict(frames=rng.randn(b, t, h, w, 3).astype(np.float32), frame_valid=frame_valid,
-                 pixel_valid=np.ones((b, t, h, w), bool), token_ids=rng.randint(3, 100, (b, l)),
-                 token_valid=np.ones((b, l), bool))
-    targets = dict(boxes=rng.uniform(0.2, 0.6, (b, t, 4)).astype(np.float32) * box_valid[..., None],
-                   box_valid=box_valid, actioness=actioness,
-                   temp_bound=np.asarray([[1, 3], [2, 2]], np.int32))
-    results = {}
-    for device in ("cpu", "cuda"):
-        model = build_model(cfg, device=device, seed=0)
-        opt = make_optimizer(cfg, model, num_training_steps=10)
-        counts = (pka.LAUNCHES.count, pka.BWD_LAUNCHES.count, pkb.LAUNCHES.count)
-        losses = accumulate_grads(
-            cfg, model, opt, VideoBatch(**{k: torch.from_numpy(v).to(device) for k, v in batch.items()}),
-            VideoTargets(**{k: torch.from_numpy(v).to(device) for k, v in targets.items()}))
-        launched = tuple(c1 - c0 for c0, c1 in zip(counts, (pka.LAUNCHES.count,
-                                                             pka.BWD_LAUNCHES.count,
-                                                             pkb.LAUNCHES.count)))
-        # per microbatch: 8 attention calls (K1, each with a K2 in the backward)
-        # and layer1's + layer2's stride-1 blocks (K3)
-        assert launched == ((0, 0, 0) if device == "cpu" else (16, 16, 4))
-        results[device] = (losses["loss"].item(),
-                           {n: p.grad for n, p in model.named_parameters()})
-    (loss_c, grads_c), (loss_g, grads_g) = results["cpu"], results["cuda"]
-    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
-    for name, g in grads_c.items():
-        if g is None:
-            assert grads_g[name] is None, name
-            continue
-        np.testing.assert_allclose(grads_g[name].cpu().numpy(), g.numpy(), atol=2e-4, rtol=1e-3,
-                                   err_msg=name)
+
+@functools.lru_cache(maxsize=None)
+def _training_routes(draw: str, seed: int = 0) -> dict:
+    """One training forward+backward of the tiny model from ``draw``'s
+    weights for ``seed`` by each route: float64 on the CPU (the reference), the CPU's and
+    the card's plain versions in fp32, the card's kernels in fp32 (K1, K2,
+    K3 and the K3 recompute); {route: (loss, gradients)} and the kernel
+    route's launches."""
+    cfg = gc.train_cfg()
+    batch, targets = gc.train_arrays()
+    routes = {"float64": gc.training_grads(
+        cfg, gc.fresh_model(cfg, "cpu", draw, seed).double(), batch, targets, torch.float64)}
+    routes["cpu"] = gc.training_grads(cfg, gc.fresh_model(cfg, "cpu", draw, seed), batch, targets)
+    with plain_kernels():
+        routes["card plain"] = gc.training_grads(cfg, gc.fresh_model(cfg, "cuda", draw, seed),
+                                                 batch, targets)
+    before = _launch_counts()
+    routes["card kernels"] = gc.training_grads(cfg, gc.fresh_model(cfg, "cuda", draw, seed),
+                                               batch, targets)
+    launched = tuple(b - a for a, b in zip(before, _launch_counts()))
+    return dict(routes=routes, launched=launched)
+
+
+def _errors(routes: dict) -> dict:
+    ref = routes["float64"][1]
+    return {name: gc.route_errors(grads, ref) for name, (_, grads) in routes.items()
+            if name != "float64"}
+
+
+@pytest.mark.parametrize("draw,seed", [
+    pytest.param("jax", 0, id="jax"),
+    pytest.param("untruncated", 0, id="untruncated"),
+    # a draw near a kink: an fp32 route that rounds to its other side reads
+    # 1e-4 to 4e-2 from float64 (the card's kernels 1.35e-4 on the backbone's
+    # convolutions, another CPU's plain route a median 6.6e-4), where seed 0
+    # reads 1e-6
+    pytest.param("jax", 6, id="jax_near_a_kink"),
+])
+def test_tiny_model_training_gradients_on_card_match_cpu(dev, draw, seed):
+    """One training forward+backward of the tiny model (layer2 with a
+    trainable fused block, every kernel route on, fp32, no dropout), from
+    the port's draw ("jax") and from its earlier untruncated one: the loss
+    on the card against the CPU at rtol 1e-4; every gradient tensor's
+    relative L2 error to the float64 reference by the card's kernels within
+    gc.MULTIPLE x the larger of the CPU's and the card's plain fp32 routes'
+    errors plus gc.FLOOR (torch_grad_check.py)."""
+    res = _training_routes(draw, seed)
+    # per microbatch: 8 attention calls (K1, each with a K2 in the backward)
+    # and layer1's + layer2's stride-1 blocks (K3)
+    assert res["launched"] == (16, 16, 4)
+    routes = res["routes"]
+    np.testing.assert_allclose(routes["card kernels"][0], routes["cpu"][0], rtol=1e-4)
+    for name, grad in routes["cpu"][1].items():
+        assert (grad is None) == (routes["card kernels"][1][name] is None), name
+    errs = _errors(routes)
+    _print_errors(f"{draw} (seed {seed})", errs)
+    failures = gc.check_failures(errs["card kernels"], [errs["cpu"], errs["card plain"]])
+    assert not failures, [(n, f"{e:.3e}", f"{p:.3e}") for n, e, p in failures[:5]]
+
+
+def _print_errors(draw: str, errs: dict) -> None:
+    names = [n for n in errs["cpu"] if max(e[n] for e in errs.values()) < 1]
+    print(f"\n{draw} draw, {len(names)} gradient tensors (and {len(errs['cpu']) - len(names)} "
+          "whose exact gradient is 0), relative L2 error to float64:")
+    for route, e in errs.items():
+        vals = sorted((e[n], n) for n in names)
+        print(f"  {route:12s} median {vals[len(vals) // 2][0]:.3e}, largest "
+              + ", ".join(f"{n} {v:.3e}" for v, n in vals[::-1][:3]))
+    ratio = sorted((errs["card kernels"][n] / max(errs["cpu"][n], errs["card plain"][n]), n)
+                   for n in names if max(errs["cpu"][n], errs["card plain"][n]) > 0)
+    print(f"  kernels / larger plain: median {ratio[len(ratio) // 2][0]:.3f}, largest "
+          + ", ".join(f"{n} {v:.3f}" for v, n in ratio[::-1][:3]))
+
+
+def test_tiny_model_gradient_check_catches_a_planted_k2_fault(dev):
+    """The control of the check above: dk of one K2 call (the last
+    spatial-decoder layer's cross-attention in the first microbatch) scaled
+    by 1.01 on the card. The check fails at the port's draw; the check it
+    replaced (every gradient card vs CPU at atol 2e-4 / rtol 1e-3) fails at
+    the untruncated draw."""
+    cfg = gc.train_cfg()
+    batch, targets = gc.train_arrays()
+    planted = {}
+    for draw in ("jax", "untruncated"):
+        with gc.planted_k2_fault(call=2) as calls:
+            planted[draw] = gc.training_grads(cfg, gc.fresh_model(cfg, "cuda", draw), batch,
+                                              targets)[1]
+        assert len(calls) == 1 and calls[0][2] == 2 * cfg.MODEL.STCAT.HIDDEN // 4, calls
+    errs = _errors(_training_routes("jax")["routes"])
+    failures = gc.check_failures(gc.route_errors(planted["jax"], _training_routes("jax")[
+        "routes"]["float64"][1]), [errs["cpu"], errs["card plain"]])
+    print(f"\nplanted dk x 1.01: the check fails on {len(failures)} tensors, worst "
+          + ", ".join(f"{n} {e:.3e} (plain {p:.3e})" for n, e, p in failures[:3]))
+    assert any(".layers.1.ca_kcontent_proj.weight" in n for n, _, _ in failures), failures[:5]
+    cpu = _training_routes("untruncated")["routes"]["cpu"][1]
+    old = [n for n, g in cpu.items() if g is not None and not np.allclose(
+        planted["untruncated"][n].numpy(), g.numpy(), atol=2e-4, rtol=1e-3)]
+    print(f"the earlier check at the untruncated draw fails on {len(old)} tensors: {old[:4]}")
+    assert old
 
 
 def test_prefetch_to_device_orders_copies_before_their_readers(dev):

@@ -125,9 +125,9 @@ def overfit(tmp: str, device=None, extra=(), iters: int = ITERS) -> dict:
     }
 
 
-def check(out: dict) -> None:
-    """tests/test_learning.py's assertions on an ``overfit`` result, raised
-    explicitly (they are chip_smoke.py's gate too)."""
+def misses(out: dict) -> list:
+    """tests/test_learning.py's assertions on an ``overfit`` result that
+    fail, as messages."""
     res = out["res"]
     failed = []
     # a trained model localizes the tube in space and time on both clips
@@ -140,5 +140,12 @@ def check(out: dict) -> None:
     for k in ("viou_drift", "tiou_drift"):
         if not out[k] < MAX_BF16_DRIFT:
             failed.append(f"bf16 {k} {out[k]:.4f} >= {MAX_BF16_DRIFT}")
+    return failed
+
+
+def check(out: dict) -> None:
+    """tests/test_learning.py's assertions on an ``overfit`` result, raised
+    explicitly."""
+    failed = misses(out)
     if failed:
-        raise AssertionError(f"{'; '.join(failed)}: fp32 {res}, bf16 {out['res_bf16']}")
+        raise AssertionError(f"{'; '.join(failed)}: fp32 {out['res']}, bf16 {out['res_bf16']}")
