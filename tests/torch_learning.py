@@ -16,6 +16,7 @@ on the CPU and holds its config to the JAX test's.
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import time
@@ -91,7 +92,8 @@ def _sync(dev: torch.device) -> None:
 
 def overfit(tmp: str, device=None, extra=(), iters: int = ITERS) -> dict:
     """Train ``iters`` iterations, then validate in fp32 and in bf16 compute.
-    Returns both metric dicts, their drifts and the seconds of each part."""
+    Returns both metric dicts, their drifts, the seconds of each part, the
+    config and the trained state (for ``evaluate``)."""
     cfg = learning_cfg(tmp, extra)
     logger = setup_logger("learn", rank=0)
     t0 = time.perf_counter()
@@ -114,33 +116,91 @@ def overfit(tmp: str, device=None, extra=(), iters: int = ITERS) -> dict:
                               state, builder, logger)
     _sync(dev)
     val_bf16_s = time.perf_counter() - t0
-    tiou_keys = [k for k in res if k.endswith("tiou")]
     return {
         "iterations": it, "res": res, "res_bf16": res_bf16,
-        "viou": viou(res), "viou_bf16": viou(res_bf16),
-        "viou_drift": abs(viou(res_bf16) - viou(res)),
-        "tiou_drift": max(abs(res_bf16[k] - res[k]) for k in tiou_keys),
+        "viou": viou(res), "viou_bf16": viou(res_bf16), **drifts(res_bf16, res),
         "drift": {k: res_bf16[k] - res[k] for k in res},
         "train_s": train_s, "val_s": val_s, "val_bf16_s": val_bf16_s,
+        "cfg": cfg, "state": state,
     }
+
+
+def drifts(res: dict, ref: dict) -> dict:
+    """tests/test_learning.py's two drifts of ``res`` from ``ref``: the
+    m_vIoU's, and the largest of the tIoUs'."""
+    return {"viou_drift": abs(viou(res) - viou(ref)),
+            "tiou_drift": max(abs(res[k] - ref[k]) for k in ref if k.endswith("tiou"))}
+
+
+def drift_misses(res: dict, ref: dict) -> list:
+    """The drifts of ``res`` from ``ref`` at or past the JAX test's limit,
+    as messages."""
+    return [f"{k} {v:.4f} >= {MAX_BF16_DRIFT}" for k, v in drifts(res, ref).items()
+            if not v < MAX_BF16_DRIFT]
+
+
+_QUIET = logging.getLogger("torch_learning.evaluate")
+_QUIET.addHandler(logging.NullHandler())
+_QUIET.propagate = False
+
+
+def evaluate(cfg, state, device, dtype: str, logger=None):
+    """Validate ``state``'s weights on the two clips as ``overfit`` does,
+    with a fresh model of ``cfg`` at TPU.COMPUTE_DTYPE ``dtype`` on
+    ``device``, logging nowhere unless given a ``logger``. Returns (metrics,
+    rows): per row of each forward, its frame mask, pred_sted and pred_boxes,
+    fp32 on the CPU."""
+    c = merge_from_list(cfg, ["TPU.COMPUTE_DTYPE", dtype])
+    os.makedirs(c.OUTPUT_DIR, exist_ok=True)
+    model = build_model(c, device, seed=c.SEED, mesh=mesh_from_config(c))
+    rows = []
+
+    def keep(module, args, out):
+        for i, fv in enumerate(args[0].frame_valid.cpu()):
+            rows.append({"frame_valid": fv, "pred_sted": out["pred_sted"][i].float().cpu(),
+                         "pred_boxes": out["pred_boxes"][i].float().cpu()})
+
+    handle = model.register_forward_hook(keep)
+    try:
+        res = run_validation(c, model, state, builder, logger or _QUIET)
+    finally:
+        handle.remove()
+    return res, rows
+
+
+def span_margin(pred_sted: torch.Tensor, frame_valid: torch.Tensor):
+    """The span ``ops.sted.decode_sted`` picks for one row, and its margin:
+    the chosen (start, end) pair's score less the best other pair's."""
+    t = pred_sted.shape[0]
+    ls = torch.log_softmax(pred_sted[:, 0].double(), -1)
+    le = torch.log_softmax(pred_sted[:, 1].double(), -1)
+    idx = torch.arange(t)
+    valid = (idx[:, None] < idx[None, :]) & frame_valid[:, None] & frame_valid[None, :]
+    score = torch.where(valid, ls[:, None] + le[None, :], -torch.inf).flatten()
+    top = torch.topk(score, 2)
+    best = int(top.indices[0])
+    return (best // t, best % t), float(top.values[0] - top.values[1])
+
+
+def threshold_misses(res: dict) -> list:
+    """tests/test_learning.py's fp32 thresholds that ``res`` misses, as
+    messages."""
+    failed = []
+    # a trained model localizes the tube in space and time on both clips
+    if not viou(res) > MIN_VIOU:
+        failed.append(f"m_vIoU {viou(res):.4f} <= {MIN_VIOU}")
+    # a positional shortcut scores ~0 on one query type
+    for k in ("declar_viou", "inter_viou"):
+        if not res[k] > MIN_QTYPE_VIOU:
+            failed.append(f"{k} {res[k]:.4f} <= {MIN_QTYPE_VIOU}")
+    return failed
 
 
 def misses(out: dict) -> list:
     """tests/test_learning.py's assertions on an ``overfit`` result that
     fail, as messages."""
-    res = out["res"]
-    failed = []
-    # a trained model localizes the tube in space and time on both clips
-    if not out["viou"] > MIN_VIOU:
-        failed.append(f"m_vIoU {out['viou']:.4f} <= {MIN_VIOU}")
-    # a positional shortcut scores ~0 on one query type
-    for k in ("declar_viou", "inter_viou"):
-        if not res[k] > MIN_QTYPE_VIOU:
-            failed.append(f"{k} {res[k]:.4f} <= {MIN_QTYPE_VIOU}")
-    for k in ("viou_drift", "tiou_drift"):
-        if not out[k] < MAX_BF16_DRIFT:
-            failed.append(f"bf16 {k} {out[k]:.4f} >= {MAX_BF16_DRIFT}")
-    return failed
+    return threshold_misses(out["res"]) + [f"bf16 {m}" for m in
+                                           drift_misses(out["res_bf16"], out["res"])]
 
 
 def check(out: dict) -> None:
