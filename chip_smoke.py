@@ -120,10 +120,31 @@ Phases (any failure exits non-zero; no phase's error is caught):
      planted control (LEARNING_PLANT: one K1 call per forward zeroed in a
      bf16 evaluation) must fail that drift check. Iteration and validation
      seconds, both drifts and peak memory.
+  11. full scale against the JAX package (tests/torch_full_scale.py): the
+     recipe with every dropout 0 and seeded weights (checksum against
+     tests/assets/torch_full_scale/meta.json, the fixture
+     scripts/torch_full_scale_fixture.py made with the JAX package on the
+     CPU) loaded from a .pth through GroundingPredictor serves two requests
+     (4 lanes of a 32-frame bucket at 448 px, one request's streams padded)
+     and takes one train forward+backward (one 16-frame clip at 224 px) on
+     four routes: (a) fp32 on the kernels, TF32 off; (b) fp32 on their
+     plain versions; (c) bf16 on the kernels; (d) bf16 on the plain
+     versions. (a) and (b): every raw output and per-frame box within atol
+     5e-4 / rtol 1e-3 of JAX's, each span equal where JAX's margin exceeds
+     8 x the row's |d pred_sted| (below that the outputs' agreement cannot
+     decide it), each loss term within rel 1e-4, each parameter's gradient
+     norm and projection within 1e-3 of its scale; (c): each raw output's
+     relative L2 error to JAX fp32 within 2 x the larger of JAX bf16's own
+     (the farther of its two compilations) and (d)'s + 2e-4, each row's
+     span and sted margin printed; K1, K2 and K3 launched in (a) and (c),
+     none in (b) and (d); a planted control per dtype (layer3.22's K3
+     launch in each forward scaled by 1.01 in fp32, by 1.1 in bf16) must
+     fail its comparison. Each output's error beside its limit, the stage
+     rms, the phase's seconds.
 Every phase prints its seconds. The line before the last is a JSON object
 listing every kernel's numbers, with its launches on each phase's path
 (launches_by_path: serving, training, loop, cli, lstm, inputs, distributed,
-learning; distributed_launches_per_rank by layout); the last line is the
+learning, full_scale; distributed_launches_per_rank by layout); the last line is the
 device record.
 """
 
@@ -145,7 +166,7 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "tests"))  # torch_learning, torch_grad_check
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # torch_learning, torch_full_scale, ...
 
 from stcat_tpu_torch.config import default_config, merge_from_file, merge_from_list  # noqa: E402
 from stcat_tpu_torch.core.batch import to_device  # noqa: E402
@@ -161,6 +182,7 @@ from stcat_tpu_torch.train.optimizer import AdamW, make_optimizer  # noqa: E402
 from stcat_tpu_torch.train.step import (  # noqa: E402
     accumulate_grads, create_train_state, make_train_step,
 )
+import torch_full_scale as full_scale  # noqa: E402
 import torch_learning  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -2154,6 +2176,183 @@ def learning_phase():
     return launches
 
 
+# phase 11: the published model against the JAX package's outputs
+# (tests/torch_full_scale.py; tests/assets/torch_full_scale/)
+FULL_SCALE_ROUTES = (  # key, what, compute dtype, kernels swapped for their plain versions
+    ("a", "fp32, kernels", "float32", ()),
+    ("b", "fp32, plain versions", "float32", ("K1", "K2", "K3")),
+    ("c", "bf16, kernels", "bfloat16", ()),
+    ("d", "bf16, plain versions", "bfloat16", ("K1", "K2", "K3")),
+)
+# the planted controls, one per compute dtype on its kernel route: every
+# forward's K3 call ``call`` (0-2 layer1, 3-5 layer2, 6-27 layer3, 28-29
+# layer4: 27 is layer3.22, a block only the full depth has) scaled by
+# ``scale``. Readings on the CPU (PERF.md §6): in fp32 1.001 read 0.32 x the
+# fp32 limit and 1.01 3.26 x it, the unplanted port 0.0015 x; 1.1 in fp32
+# moved 16 of the 24 raw outputs past the bf16 limits, by up to 3.4 x
+FULL_SCALE_PLANT = {"float32": {"call": 27, "scale": 1.01},
+                    "bfloat16": {"call": 27, "scale": 1.1}}
+
+
+@contextlib.contextmanager
+def planted_k3(call: int, scale: float):
+    """Scale the output of K3 call ``call`` of every forward of the
+    published model by ``scale``; the launch counts are untouched."""
+    saved, calls = kbottle.fused_bottleneck, [0]
+
+    def planted(x, p, dilation):
+        out = saved(x, p, dilation)
+        calls[0] += 1
+        return out * scale if (calls[0] - 1) % K3_PER_MICROBATCH == call else out
+
+    kbottle.fused_bottleneck = planted
+    try:
+        yield calls
+    finally:
+        kbottle.fused_bottleneck = saved
+
+
+def _full_scale_runs(path: str, reqs, dirs) -> dict:
+    """Every route of FULL_SCALE_ROUTES (one predictor per compute dtype,
+    from the .pth at ``path``): the served answers and raw outputs, the train
+    step's loss terms and gradient readings, the launches; on each kernel
+    route also the served outputs with its planted control."""
+    runs, pred = {}, None
+    for key, what, dtype, plain in FULL_SCALE_ROUTES:
+        if pred is None or pred.cfg.TPU.COMPUTE_DTYPE != dtype:
+            pred = None
+            torch.cuda.empty_cache()
+            pred = GroundingPredictor(full_scale.full_cfg(dtype), weights=path,
+                                      max_batch=len(reqs), device=DEVICE)
+        for counter in KERNEL_COUNTERS.values():
+            counter.reset()
+        t = time.time()
+        with plain_kernels(plain), full_scale.stage_rms(pred.model) as rms:
+            answers, outputs = full_scale.serve(pred, reqs)
+            torch.cuda.synchronize()
+            serve_s = time.time() - t
+            terms, readings = full_scale.train_step(full_scale.train_cfg(dtype), pred.model, dirs)
+        runs[key] = {"answers": answers, "outputs": outputs, "terms": terms,
+                     "readings": readings, "launches": _counts(), "rms": rms,
+                     "serve_s": serve_s, "s": time.time() - t}
+        if not plain:
+            with planted_k3(**FULL_SCALE_PLANT[dtype]) as calls:
+                runs[key]["planted"] = full_scale.serve(pred, reqs)[1], calls[0]
+    return runs
+
+
+def full_scale_phase():
+    """The published model on the card against the JAX package's outputs
+    for the same seeded weights and inputs (module docstring, phase 11)."""
+    arrays, meta = full_scale.load_fixture()
+    sd = full_scale.weight_set()
+    digest = full_scale.checksum(sd)
+    if digest != meta["weights_sha256"]:
+        raise AssertionError(f"full scale: the seeded weights' checksum {digest} is not the "
+                             f"fixture's {meta['weights_sha256']}")
+    want = full_scale.fixture_outputs(arrays)
+    want_answers = full_scale.fixture_answers(arrays)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reqs = full_scale.requests(full_scale.SERVED)
+    print(f"  fixture: JAX {meta['versions']['jax']} on {meta['devices']}, seed {meta['seed']}, "
+          f"weights sha256 {digest[:16]}... (matches); cuts: "
+          + "; ".join(f"{k} {v}" for k, v in meta["cuts"].items()))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_full_scale_")
+    try:
+        path = os.path.join(tmp, "weights.pth")
+        torch.save(sd, path)
+        del sd
+        runs = _full_scale_runs(path, reqs, full_scale.grad_directions())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    failed = []
+    print("  stage rms (route a): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in runs["a"]["rms"].items()))
+    for key, what, *_ in FULL_SCALE_ROUTES:
+        r = runs[key]
+        print(f"  {key} ({what}): served in {r['serve_s']:.2f} s (two forwards), route "
+              f"{r['s']:.2f} s; launches {r['launches']}; loss {r['terms']['loss']:.6f} (JAX "
+              f"{float(arrays['train/loss/loss']):.6f}); spans "
+              + ", ".join(str(v.tolist()) for k, v in r["answers"].items() if k.endswith("span"))
+              + " (JAX " + ", ".join(str(v.tolist()) for k, v in want_answers.items()
+                                     if k.endswith("span")) + ")")
+    fp32 = {key: full_scale.output_errors(runs[key]["outputs"], want) for key in ("a", "b")}
+    bf16 = full_scale.bf16_errors(runs["c"]["outputs"], arrays, runs["d"]["outputs"])
+    print(f"  raw outputs: (a), (b) max |d| to JAX fp32 (x the limit atol {full_scale.ATOL} + "
+          f"rtol {full_scale.RTOL} |jax|); (c) relative L2 error to JAX fp32 beside JAX bf16's "
+          f"and (d)'s, limit {full_scale.BF16_MULTIPLE} x the larger + {full_scale.BF16_FLOOR}:")
+    for k in want:
+        e, e_jax, e_plain, lim = bf16[k]
+        print(f"    {k:24s} a {fp32['a'][k][0]:.3e} ({fp32['a'][k][1]:.4f} x)  b "
+              f"{fp32['b'][k][0]:.3e} ({fp32['b'][k][1]:.4f} x)  c {e:.3e} (JAX bf16 "
+              f"{e_jax:.3e}, d {e_plain:.3e}, limit {lim:.3e}; c / JAX {e / e_jax:.2f})")
+    past = [k for k, (e, e_jax, _, _) in bf16.items()
+            if not e <= full_scale.BF16_MULTIPLE * e_jax + full_scale.BF16_FLOOR]
+    print(f"  (c) past {full_scale.BF16_MULTIPLE} x JAX bf16's error + {full_scale.BF16_FLOOR} "
+          f"alone: {past or 'none'}; (d) past it: " + str(
+              [k for k, (_, e_jax, e_plain, _) in bf16.items()
+               if not e_plain <= full_scale.BF16_MULTIPLE * e_jax + full_scale.BF16_FLOOR]
+              or "none"))
+    for key in ("a", "b"):
+        failed += [f"{key}: {k} at {ratio:.3f} x the limit" for k, (_, ratio) in fp32[key].items()
+                   if not ratio <= 1.0]
+        misses, notes = full_scale.answer_misses(runs[key]["answers"], want_answers,
+                                                 runs[key]["outputs"]["pred_sted"],
+                                                 want["pred_sted"])
+        failed += [f"{key}: {m}" for m in misses]
+        print("".join(f"  {key} note: {n}\n" for n in notes), end="")
+        (lr, lk), (gr, gk, which), misses = full_scale.train_errors(
+            runs[key]["terms"], runs[key]["readings"], arrays)
+        print(f"  {key} train step: worst loss term {lk} at {lr:.4f} x rel "
+              f"{full_scale.LOSS_RTOL}; worst gradient {gk} ({which}) at {gr:.4f} x its limit")
+        failed += [f"{key}: {m}" for m in misses]
+    failed += [f"c: {k} relative L2 error {e:.3e} > {lim:.3e}"
+               for k, (e, _, _, lim) in bf16.items() if not e <= lim]
+    print("  sted spans per forward row: JAX fp32's span and margin (log-probability), then "
+          "each route's span and max |d pred_sted| to JAX (a, b held where the margin exceeds "
+          f"{full_scale.SPAN_MARGIN} x it; c, d reported):")
+    rows = {key: full_scale.span_rows(runs[key]["outputs"]["pred_sted"], want["pred_sted"],
+                                      want_answers["frame_valid"]) for key in runs}
+    for i, r in enumerate(rows["a"]):
+        print(f"    row {i}: JAX {r[0]} margin {r[1]:.3e}; " + "; ".join(
+            f"{key} {rows[key][i][2]} |d| {rows[key][i][3]:.3e}" for key in rows))
+    for key in ("c", "d"):
+        (lr, lk), (gr, gk, which), _ = full_scale.train_errors(runs[key]["terms"],
+                                                               runs[key]["readings"], arrays)
+        print(f"  {key} train step (reported: no JAX bf16 step to hold it to): worst loss term "
+              f"{lk} {lr * full_scale.LOSS_RTOL:.3e} from JAX fp32; worst gradient {gk} "
+              f"({which}) {gr:.3f} x the fp32 limit")
+        if not all(np.isfinite(v) for v in runs[key]["terms"].values()):
+            failed.append(f"{key}: non-finite loss terms {runs[key]['terms']}")
+    for key, *_, plain in FULL_SCALE_ROUTES:  # every kernel on its routes, none on the plain ones
+        n = runs[key]["launches"]
+        if (any(n.values()) if plain else min(n.values()) <= 0):
+            failed.append(f"{key}: launches {n}")
+    for key, dtype in (("a", "float32"), ("c", "bfloat16")):
+        out, calls = runs[key]["planted"]
+        if key == "a":
+            ratios = {k: r for k, (_, r) in full_scale.output_errors(out, want).items()}
+        else:
+            ratios = {k: e / lim for k, (e, _, _, lim) in full_scale.bf16_errors(
+                out, arrays, runs["d"]["outputs"]).items()}
+        caught = [k for k, r in ratios.items() if r > 1.0]
+        worst = max(ratios, key=ratios.get)
+        plant = FULL_SCALE_PLANT[dtype]
+        print(f"  planted control on {key} (K3 call {plant['call']} of each forward x "
+              f"{plant['scale']}, {calls} K3 calls): {len(caught)} of {len(ratios)} outputs past "
+              f"the limit, worst {worst} at {ratios[worst]:.3f} x: "
+              + ("caught" if caught else "NOT caught"))
+        if not caught:
+            failed.append(f"{key}: the planted K3 control passed the comparison")
+    if failed:
+        raise AssertionError("full scale: " + " | ".join(failed))
+    print("  full scale against the JAX package: passed")
+    return {k: runs["a"]["launches"][k] + runs["c"]["launches"][k] for k in runs["a"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2253,6 +2452,13 @@ def main() -> int:
     t0 = time.time()
     learned = learning_phase()
     print(f"learning phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("full scale against the JAX package (R101 3-4-23-3, RoBERTa-base, 6/6/6 at d 256; "
+          "tests/assets/torch_full_scale/):")
+    t0 = time.time()
+    full = full_scale_phase()
+    print(f"full-scale phase took {time.time() - t0:.1f} s")
 
     per_fwd = ("bf16 CUDA-event times summed over one served forward's calls at the serving "
                "path's shapes (4 lanes x 64 frames)")
@@ -2273,7 +2479,7 @@ def main() -> int:
         by_path = {"serving": served[name], "training": trained[name], "loop": looped[name],
                    "cli": clis[name], "lstm": lstm[name], "inputs": inputs[name],
                    "distributed": sum(sum(v) for v in per_rank.values()),
-                   "learning": learned[name]}
+                   "learning": learned[name], "full_scale": full[name]}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -62,6 +62,11 @@ def _assert_close(ours, theirs, name):
     pytest.param(False, [], id="False"),
     # two anchor coordinates: ref_point_head takes d (not 2d) sine features
     pytest.param(True, ["MODEL.STCAT.QUERY_DIM", "2"], id="query_dim_2"),
+    # the published head widths on a shallow model: 32 in STCAT (d 256, 8
+    # heads; the concatenated cross-attention's qk 64, v 32) and 64 in RoBERTa
+    pytest.param(True, ["MODEL.STCAT.HEADS", "2"], id="stcat_head_width_32"),
+    pytest.param(True, ["MODEL.TEXT_MODEL.HIDDEN", "128", "MODEL.TEXT_MODEL.HEADS", "2"],
+                 id="text_head_width_64"),
 ])
 def test_stcatnet_matches_jax(from_scratch, extra):
     jcfg = tiny_cfg(["MODEL.STCAT.FROM_SCRATCH", str(from_scratch).lower(),
