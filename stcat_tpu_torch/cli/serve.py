@@ -18,6 +18,10 @@ ends):
     -> {"boxes": {frame_id: [x1, y1, x2, y2]}, "span": [start, end]}
        boxes in original pixels, the span in frame_ids units.
 
+  GET  /trace     (with ``--trace``) the spans recorded since the last
+                  GET /trace (``serve.*``, ``serve.py``), a Chrome trace:
+                  {"traceEvents": [...]}; kept in memory until read
+
 A body that does not parse, or an input the predictor refuses, answers 400;
 an unknown path 404; any other failure 500. Client sketch:
 
@@ -48,12 +52,16 @@ def parse_args(argv=None):
                    help="requests per micro-batch (two device lanes each)")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="longest wait of a request for lane-mates")
+    p.add_argument("--trace", action="store_true",
+                   help="record the serving spans and answer them at GET /trace")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
 
 
 def _make_handler(batcher, info):
     import numpy as np
+
+    from ..core import trace
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
@@ -70,6 +78,8 @@ def _make_handler(batcher, info):
         def do_GET(self):
             if self.path == "/healthz":
                 self._reply(200, {"status": "ok", **info})
+            elif self.path == "/trace" and trace.enabled():
+                self._reply(200, {"traceEvents": trace.chrome_events(trace.drain())})
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -130,6 +140,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = load_config(args.config_file, args.opts)
+    if args.trace:
+        from ..core import trace
+        trace.enable()
     logger = setup_logger("stcat_tpu_torch", cfg.OUTPUT_DIR)
     server, batcher = build_server(cfg, args.host, args.port, args.max_batch, args.max_wait_ms,
                                    logger, device)

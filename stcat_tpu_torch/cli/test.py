@@ -13,11 +13,15 @@ evaluates on ``cuda`` unless ``--device`` names another device;
 DATA_DIR on first use). The metrics are logged and returned, and the
 evaluator writes OUTPUT_DIR/test_results.json. Under ``torchrun`` the
 ranks evaluate on the mesh cfg.TPU describes (``cli/train.py``).
+``--trace`` records the evaluation's spans (``eval.*`` and
+``prefetch.place``, ``core/trace.py``) and writes them as a Chrome trace to
+OUTPUT_DIR/trace/eval_rank<R>.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 from . import add_common_args, dataset_builder, load_config
@@ -29,6 +33,8 @@ def parse_args(argv=None):
     add_common_args(p)
     add_dist_args(p)
     p.add_argument("--synthetic", action="store_true", help="evaluate the synthetic dataset")
+    p.add_argument("--trace", action="store_true",
+                   help="write the evaluation's spans to OUTPUT_DIR/trace as a Chrome trace")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
 
@@ -36,6 +42,7 @@ def parse_args(argv=None):
 def main(argv=None):
     """The evaluator's summary (None off the main process)."""
     args = parse_args(argv)
+    from ..core import trace
     from ..core.dist import get_rank
     from ..core.logging import setup_logger
     from ..data.loader import make_loader
@@ -57,7 +64,16 @@ def main(argv=None):
     loader = make_loader(cfg, dataset_builder(args.synthetic)(cfg, "test"), "test", mesh=mesh)
     check_tokenizer_for_weights(cfg, loader.tokenizer, cfg.MODEL.WEIGHT, what="evaluation")
     load_weights_for_eval(model, cfg.MODEL.WEIGHT, logger)
+    if args.trace:
+        trace.enable()
     res = do_eval(cfg, model, loader, build_evaluator(cfg, logger, "test"), logger)
+    if args.trace:
+        trace.disable()
+        path = os.path.join(cfg.OUTPUT_DIR or ".", "trace", f"eval_rank{get_rank()}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": trace.chrome_events(trace.drain())}, f)
+        logger.info(f"span trace written to {path}")
     if res is not None:
         logger.info(f"results: {res}")
     return res

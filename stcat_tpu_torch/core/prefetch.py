@@ -2,10 +2,10 @@
 
 The loader's batch pool overlaps decode and assembly with the device; this
 module overlaps the host-to-device copy too. ``device_prefetch`` runs
-``place`` on a background thread, ``depth`` placed items ahead of the
-consumer: order is kept, an exception of the iterator or of ``place``
-re-raises at the consumer's next pull, and closing the generator stops the
-worker promptly.
+``place`` on a background thread (each call a ``prefetch.place`` span,
+``core/trace.py``), ``depth`` placed items ahead of the consumer: order is
+kept, an exception of the iterator or of ``place`` re-raises at the
+consumer's next pull, and closing the generator stops the worker promptly.
 
 ``prefetch_to_device`` is that pipeline with the copy on the card:
   * the worker copies every array of an item into pinned host memory
@@ -29,6 +29,8 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple, TypeVar
 
 import numpy as np
 import torch
+
+from . import trace
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -56,7 +58,11 @@ def device_prefetch(iterator: Iterable[T], place: Callable[[T], U], depth: int =
     def worker():
         try:
             for item in source:
-                if stop.is_set() or not _put(place(item)):
+                if stop.is_set():
+                    return
+                with trace.span("prefetch.place"):
+                    placed = place(item)
+                if not _put(placed):
                     return
         except BaseException as e:  # re-raised at the consumer
             err.append(e)

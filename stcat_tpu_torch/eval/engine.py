@@ -16,6 +16,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.batch import stack_streams, subsample_stream
 from ..core.dist import is_main_process, synchronize
 from ..core.mesh import local_batch
@@ -130,7 +131,14 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
     of forwards); under sequence parallelism the stacked batch keeps this
     rank's frames (``mesh.local_batch``). The ranks of one model or seq
     group compute the same predictions, so only the first of each
-    contributes to the evaluator's gather."""
+    contributes to the evaluator's gather.
+
+    Spans (``core/trace.py``, when the recorder is on), per batch:
+    ``eval.next_batch`` (the wait on the prefetch stream), ``eval.forward``
+    (the forward's host enqueue), ``eval.postprocess``, and for each batch
+    drained ``eval.drain`` holding ``eval.readback`` (``to_host``) and
+    ``eval.merge`` (the stream merge and the evaluator's update); the
+    prefetch thread records ``prefetch.place``."""
     fwd = make_eval_forward(cfg, model)
     device_split = eval_device_split_active(cfg)
     device = next(model.parameters()).device
@@ -143,18 +151,27 @@ def do_eval(cfg, model, loader, evaluator, logger=None):
 
     def drain(item):
         res, fv, m1, m2 = item
-        boxes, s_idx, e_idx, fv = to_host((*res, fv))
-        bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, fv, m1, m2)
-        evaluator.update(bbox_pred)
-        evaluator.video_update(temp_pred)
+        with trace.span("eval.drain"):
+            with trace.span("eval.readback"):
+                boxes, s_idx, e_idx, fv = to_host((*res, fv))
+            with trace.span("eval.merge"):
+                bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, fv, m1, m2)
+                evaluator.update(bbox_pred)
+                evaluator.video_update(temp_pred)
 
     stream = prefetch_to_device((host_side(x) for x in loader), device, depth=2)
     pending: deque = deque()
     try:
-        for batch, sizes, m1, m2 in stream:
-            out = fwd(batch)
-            fv = out["frame_valid"]
-            with torch.inference_mode():
+        while True:
+            with trace.span("eval.next_batch"):
+                item = next(stream, None)
+            if item is None:
+                break
+            batch, sizes, m1, m2 = item
+            with trace.span("eval.forward"):
+                out = fwd(batch)
+                fv = out["frame_valid"]
+            with trace.span("eval.postprocess"), torch.inference_mode():
                 res = postprocess(out["pred_boxes"], out["pred_sted"], sizes, fv)
             pending.append((res, fv, m1, m2))
             if len(pending) > PIPELINE_DEPTH:

@@ -182,18 +182,3 @@ class NativeLibrary:
                     self._lib = lib
             return self._lib
 
-
-class LaunchCounter:
-    """Number of kernel launches a wrapper has made (thread-safe)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.count = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.count = 0

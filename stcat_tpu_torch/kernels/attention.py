@@ -34,11 +34,12 @@ import math
 
 import torch
 
+from ..core import trace
 from . import _build
 
 MAX_HEAD_DIM = 128
-LAUNCHES = _build.LaunchCounter()      # K1
-BWD_LAUNCHES = _build.LaunchCounter()  # K2
+LAUNCHES = trace.Counter("k1.launches")
+BWD_LAUNCHES = trace.Counter("k2.launches")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

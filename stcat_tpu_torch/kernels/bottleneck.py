@@ -32,11 +32,12 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import trace
 from . import _build
 
 # shared memory one thread block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
-LAUNCHES = _build.LaunchCounter()
+LAUNCHES = trace.Counter("k3.launches")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -11,10 +11,26 @@ Each request is split into its even and odd frame streams; the device batch
 holds 2R lanes (R = max_batch; short request lists are padded with replica
 lanes that are decoded away), preprocessed on the device, run through
 STCATNet, postprocessed, and merged back to the full frame rate.
+
+Spans (``core/trace.py``; ``trace.enable()`` turns them on,
+``trace.drain()`` collects them). Each submitted request gets an id. The
+dispatcher thread, named
+``stcat-microbatcher``, records per group ``serve.group`` (from taking its
+first request to closing it, the ``max_wait_ms`` wait included) and
+``serve.dispatch`` around ``predict_batch`` (``attrs["requests"]``: the
+group's ids), then one ``serve.queued`` per request, from its submit to the
+start of its ``serve.dispatch``. ``predict_batch`` records ``serve.batch``
+(``attrs`` ``real`` and ``lanes``: the requests and the padded lanes), a
+child of ``serve.dispatch`` under a MicroBatcher, holding ``serve.prepare``
+(host prep), ``serve.h2d`` (the copies to the device), ``serve.forward``
+(the forward's host enqueue), ``serve.postprocess``, ``serve.readback``
+(the one wait for the card) and ``serve.merge`` (the stream merge and the
+result dicts). ``cli/serve.py --trace`` serves them at ``GET /trace``.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -24,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .core import trace
 from .core.batch import RawVideoBatch, to_device
 from .data.batching import build_raw_batch, pick_bucket
 from .data.tokenize import build_tokenizer, check_tokenizer_for_weights
@@ -34,6 +51,9 @@ from .models.postprocess import postprocess
 from .ops.misc import resolve_device
 from .train.checkpoint import load_weights_for_eval
 from .train.step import make_eval_forward
+
+
+DISPATCHER = "stcat-microbatcher"
 
 
 def eval_forward(cfg, model, raw: RawVideoBatch) -> Dict[str, torch.Tensor]:
@@ -97,19 +117,29 @@ class GroundingPredictor:
                 out.extend(self.predict_batch(requests[i: i + self.max_batch]))
             return out
 
-        raw, m1, m2 = self.prepare(requests)
-        with self._lock, torch.inference_mode():
-            placed, sizes = to_device(raw, self.device), to_device(orig_sizes(m1 + m2), self.device)
-            out = eval_forward(self.cfg, self.model, placed)
-            boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"], sizes,
-                                              placed.frame_valid)
-            boxes, s_idx, e_idx = to_host((boxes, s_idx, e_idx))
-        bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, raw.frame_valid, m1, m2)
-        return [
-            {"boxes": {fid: bb[0] for fid, bb in bbox_pred[i].items()},
-             "span": temp_pred[i]["sted"]}
-            for i in range(len(requests))
-        ]
+        with trace.span("serve.batch") as batch:
+            with trace.span("serve.prepare"):
+                raw, m1, m2 = self.prepare(requests)
+            batch.note(real=sum(1 for m in m1 if not m["pad"]), lanes=len(m1))
+            with self._lock, torch.inference_mode():
+                with trace.span("serve.h2d"):
+                    placed = to_device(raw, self.device)
+                    sizes = to_device(orig_sizes(m1 + m2), self.device)
+                with trace.span("serve.forward"):
+                    out = eval_forward(self.cfg, self.model, placed)
+                with trace.span("serve.postprocess"):
+                    boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"], sizes,
+                                                      placed.frame_valid)
+                with trace.span("serve.readback"):
+                    boxes, s_idx, e_idx = to_host((boxes, s_idx, e_idx))
+            with trace.span("serve.merge"):
+                bbox_pred, temp_pred = merge_two_streams(boxes, s_idx, e_idx, raw.frame_valid,
+                                                         m1, m2)
+                return [
+                    {"boxes": {fid: bb[0] for fid, bb in bbox_pred[i].items()},
+                     "span": temp_pred[i]["sted"]}
+                    for i in range(len(requests))
+                ]
 
     def prepare(self, requests) -> Tuple[RawVideoBatch, List[Dict], List[Dict]]:
         """Host side of predict_batch for at most max_batch requests: the
@@ -151,9 +181,11 @@ class GroundingPredictor:
 class MicroBatcher:
     """Groups concurrent submit() calls into stacked device batches.
 
-    One dispatcher thread drains the queue, waits up to max_wait_ms for
-    lane-mates, and runs predictor.predict_batch; errors reach every caller
-    of the failed group through its Future.
+    One dispatcher thread (named ``stcat-microbatcher``) drains the queue,
+    waits up to max_wait_ms for lane-mates, and runs
+    predictor.predict_batch; errors reach every caller of the failed group
+    through its Future. Each request is queued with its id and its submit
+    time (``perf_counter_ns``) for the module's spans.
     """
 
     def __init__(self, predictor: GroundingPredictor, max_batch: Optional[int] = None,
@@ -163,13 +195,14 @@ class MicroBatcher:
         self.max_wait = max_wait_ms / 1e3
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._ids = itertools.count()
+        self._thread = threading.Thread(target=self._run, daemon=True, name=DISPATCHER)
         self._thread.start()
 
     def submit(self, frames: np.ndarray, text: str,
                frame_ids: Optional[Sequence[int]] = None) -> Future:
         fut: Future = Future()
-        self._q.put((fut, (frames, text, frame_ids)))
+        self._q.put((fut, (frames, text, frame_ids), next(self._ids), time.perf_counter_ns()))
         return fut
 
     def _run(self) -> None:
@@ -178,25 +211,30 @@ class MicroBatcher:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
                 continue
-            group = [first]
-            deadline = time.monotonic() + self.max_wait
-            while len(group) < self.max_batch:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    break
+            with trace.span("serve.group"):
+                group = [first]
+                deadline = time.monotonic() + self.max_wait
+                while len(group) < self.max_batch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        group.append(self._q.get(timeout=left))
+                    except queue.Empty:
+                        break
+            futs, reqs, ids, submitted = zip(*group)
+            with trace.span("serve.dispatch", requests=list(ids)) as dispatch:
                 try:
-                    group.append(self._q.get(timeout=left))
-                except queue.Empty:
-                    break
-            futs, reqs = zip(*group)
-            try:
-                results = self.predictor.predict_batch(list(reqs))
-                for fut, res in zip(futs, results):
-                    fut.set_result(res)
-            except Exception as e:  # boundary: every caller in the group gets the error
-                for fut in futs:
-                    if not fut.done():
-                        fut.set_exception(e)
+                    results = self.predictor.predict_batch(list(reqs))
+                    for fut, res in zip(futs, results):
+                        fut.set_result(res)
+                except Exception as e:  # boundary: every caller in the group gets the error
+                    for fut in futs:
+                        if not fut.done():
+                            fut.set_exception(e)
+            if dispatch.start is not None:
+                for rid, t in zip(ids, submitted):
+                    trace.record("serve.queued", t, dispatch.start, request=rid)
 
     def close(self) -> None:
         self._stop.set()

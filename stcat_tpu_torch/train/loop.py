@@ -18,8 +18,17 @@ step), ``data_time`` (waiting for the batch) and the card's memory
 CHECKPOINT_PERIOD iterations the state is checkpointed in the background,
 and at once (blocking) when SIGTERM has arrived, after which the loop stops;
 every VAL_PERIOD iterations (but the last) the EMA weights are validated;
-the final save blocks. TPU.PROFILE_STEP traces three steps with
-torch.profiler into OUTPUT_DIR/trace.
+the final save blocks.
+
+Spans (``core/trace.py``): each iteration is ``train.next_batch`` (the wait
+on the prefetch stream) then ``train.step`` (the step, and the loss read on
+a logging iteration), holding the step's ``train.grads``,
+``train.optimizer`` and ``train.ema``; ``data_time`` and ``step_time`` are
+read from those two spans' times. They are recorded while the recorder is
+on: ``trace.enable()`` before ``train()``, ``trace.drain()`` after, or
+TPU.PROFILE_STEP, which traces three steps with torch.profiler into
+OUTPUT_DIR/trace/steps_<N>.json and adds those steps' spans to that trace,
+on the profiler's clock (turning the recorder on for them if it was off).
 
 Dropout draws from a ``torch.Generator`` seeded per iteration from (SEED,
 iteration, data rank) (``step_generator``), so a resumed run draws what an
@@ -31,6 +40,7 @@ writes metrics and checkpoints.
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import threading
@@ -39,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from ..core import trace
 from ..core.dist import get_rank, is_main_process
 from ..core.logging import MetricLogger, setup_logger
 from ..core.mesh import local_batch, mesh_from_config
@@ -112,27 +123,32 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
                                  for b, t, m in loader), dev, depth=2)
     try:
         while iteration < num_training_steps:
-            t0 = time.perf_counter()
-            try:
-                batch, targets, _meta = next(stream)
-            except StopIteration:
-                break
-            data_time = time.perf_counter() - t0
-            metrics = step_fn(state, batch, targets,
-                              step_generator(cfg, iteration, dev, mesh.data_index))
-            iteration += 1
-            log_now = iteration % LOG_PERIOD == 0 or iteration == num_training_steps
-            if log_now:  # the loop's only read of the step's results: waits for the card
-                values = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
-            step_time = time.perf_counter() - t0
+            with trace.Span("train.next_batch") as waited:
+                try:
+                    batch, targets, _meta = next(stream)
+                except StopIteration:
+                    break
+            with trace.Span("train.step") as stepped:
+                metrics = step_fn(state, batch, targets,
+                                  step_generator(cfg, iteration, dev, mesh.data_index))
+                iteration += 1
+                log_now = iteration % LOG_PERIOD == 0 or iteration == num_training_steps
+                if log_now:  # the loop's only read of the step's results: waits for the card
+                    values = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+            data_time = waited.seconds
+            step_time = (stepped.end - waited.start) / 1e9
 
             if cfg.TPU.PROFILE_STEP >= 0 and iteration == cfg.TPU.PROFILE_STEP:
-                profiler = _start_profiler(dev)
+                profiler, recorder_was_on = _start_profiler(dev), trace.enabled()
+                profiled_from = time.perf_counter_ns()
+                trace.enable()
             if profiler is not None and iteration == cfg.TPU.PROFILE_STEP + 3:
                 profiler.stop()
+                if not recorder_was_on:
+                    trace.disable()
                 path = os.path.join(cfg.OUTPUT_DIR or ".", "trace", f"steps_{iteration}.json")
                 os.makedirs(os.path.dirname(path), exist_ok=True)
-                profiler.export_chrome_trace(path)
+                _export_trace(profiler, path, profiled_from, keep=recorder_was_on)
                 profiler = None
                 logger.info(f"profiler trace written to {path}")
 
@@ -167,6 +183,8 @@ def train(cfg, dataset_builder=None, logger=None, max_iters: Optional[int] = Non
         stream.close()
         if profiler is not None:
             profiler.stop()
+            if not recorder_was_on:
+                trace.disable()
         signal.signal(signal.SIGTERM, prev_handler)
         if writer is not None:
             writer.close()
@@ -182,6 +200,21 @@ def _start_profiler(dev):
     prof = profile(activities=activities)
     prof.start()
     return prof
+
+
+def _export_trace(profiler, path: str, since_ns: int, keep: bool) -> None:
+    """The profiler's Chrome trace at ``path``, with the port's spans begun
+    at or after ``since_ns`` (the profiled steps) added on the profiler's
+    clock. The recorder is drained, unless ``keep``: it was on before the
+    profiler, and its spans stay for whoever turned it on."""
+    profiler.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    got = trace.drain(keep=keep)
+    got["spans"] = [s for s in got["spans"] if s["start_ns"] >= since_ns]
+    doc["traceEvents"] += trace.chrome_events(got, doc.get("baseTimeNanoseconds", 0))
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @torch.no_grad()

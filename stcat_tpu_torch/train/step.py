@@ -38,6 +38,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.batch import RawVideoBatch, VideoTargets, device_split_streams, to_device
 from ..core.collectives import all_reduce, flat_all_reduce
 from ..core.dist import get_world_size
@@ -154,7 +155,10 @@ def make_train_step(cfg, model: nn.Module, optimizer: GroupedOptimizer, device=N
     """Returns step(state, batch, targets, generator) -> {"loss", "loss_*"},
     detached 0-d tensors on the device: the step never waits for the card,
     and the caller reads them when it needs them (the loop, every
-    LOG_PERIOD steps)."""
+    LOG_PERIOD steps). With the recorder on (``core/trace.py``) a step
+    records ``train.grads`` (``accumulate_grads``: forward, loss, backward,
+    gradient reduction), ``train.optimizer`` and ``train.ema``: host time,
+    the device's side of which runs behind it."""
     _check_cfg(cfg, model)
     dev = resolve_device(device)
 
@@ -163,10 +167,13 @@ def make_train_step(cfg, model: nn.Module, optimizer: GroupedOptimizer, device=N
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this step")
         batch, targets = to_device(batch, dev), to_device(targets, dev)
-        sums = accumulate_grads(cfg, model, optimizer, batch, targets, generator)
-        optimizer.step()
+        with trace.span("train.grads"):
+            sums = accumulate_grads(cfg, model, optimizer, batch, targets, generator)
+        with trace.span("train.optimizer"):
+            optimizer.step()
         if state.ema is not None:
-            ema_update(state.ema, model, cfg.MODEL.EMA_DECAY)
+            with trace.span("train.ema"):
+                ema_update(state.ema, model, cfg.MODEL.EMA_DECAY)
         state.step += 1
         return sums
 

@@ -14,6 +14,7 @@ import http.client
 import io
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -217,6 +218,31 @@ def _post(port, body, path="/predict"):
         conn.close()
 
 
+def test_cli_test_trace_writes_the_eval_spans(setup):
+    """cli.test --trace: the metrics of the untraced run, and the
+    evaluation's phase spans and the prefetch thread's places in
+    OUTPUT_DIR/trace/eval_rank0.json; the recorder is off afterwards."""
+    from stcat_tpu_torch.core import trace
+
+    root, opts, cfg = setup
+    run = str(root / "run")
+    try:
+        res = ptest.main(["--synthetic", "--device", "cpu", "--trace"] + opts
+                         + ["MODEL.WEIGHT", run])
+        assert not trace.enabled()
+    finally:
+        trace.disable()
+        trace.drain()
+    assert res == _eval_with(cfg, run)
+    with open(root / "out" / "trace" / "eval_rank0.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    assert names == {"eval.next_batch", "eval.forward", "eval.postprocess", "eval.drain",
+                     "eval.readback", "eval.merge", "prefetch.place"}
+    threads = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    assert "device-prefetch" in threads
+
+
 def _npz(frames, text, frame_ids=None):
     buf = io.BytesIO()
     extra = {} if frame_ids is None else {"frame_ids": np.asarray(frame_ids)}
@@ -277,6 +303,59 @@ def test_serve_answers_over_http(setup):
         assert conn.getresponse().status == 404
         conn.close()
     finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def test_serve_trace_answers_the_spans_since_the_last_read(setup):
+    """With the recorder off GET /trace is unknown (404); on (what
+    ``--trace`` does), it answers the serving spans as a Chrome trace: one
+    POST's dispatch, batch (real 1 of 2 lanes) and queued span, then
+    nothing new on the next read."""
+    import threading
+
+    from stcat_tpu_torch.core import trace
+
+    root, opts, cfg = setup
+    run_cfg = load_config("", opts + ["MODEL.WEIGHT", str(root / "run")])
+    server, batcher = pserve.build_server(run_cfg, "127.0.0.1", 0, max_batch=2,
+                                          max_wait_ms=5.0, device="cpu")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        assert _get(port, "/trace")[0] == 404
+        trace.enable()
+        assert _post(port, _npz(_clip(), "a person waves"))[0] == 200
+        spans = []  # the dispatcher ends its spans just after the answer is set
+        for _ in range(100):
+            code, body = _get(port, "/trace")
+            assert code == 200
+            spans += [e for e in body["traceEvents"] if e["ph"] == "X"]
+            if any(e["name"] == "serve.queued" for e in spans):
+                break
+            time.sleep(0.05)
+        names = [e["name"] for e in spans]
+        for name in ("serve.group", "serve.dispatch", "serve.batch", "serve.queued"):
+            assert names.count(name) == 1, name
+        (batch,) = [e for e in spans if e["name"] == "serve.batch"]
+        assert batch["args"] == {"real": 1, "lanes": 2}
+        assert _get(port, "/trace") == (200, {"traceEvents": []})
+    finally:
+        trace.disable()
+        trace.drain()
         server.shutdown()
         batcher.close()
         server.server_close()
