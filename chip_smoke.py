@@ -547,7 +547,7 @@ def plain_kernels(kernels=("K1", "K2", "K3")):
     if "K2" in kernels:
         kattn._launch_bwd = kattn.attention_bwd_plain
     if "K3" in kernels:
-        kbottle._launch = kbottle.bottleneck_plain
+        kbottle._launch = lambda x, p, dilation: kbottle.bottleneck_plain(x, p.weights, dilation)
     try:
         yield
     finally:

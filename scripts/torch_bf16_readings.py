@@ -32,6 +32,7 @@ CASES = {
     "text encoder": tb.case_roberta_encoder,
     "resnet xla": lambda s: tb.case_resnet("xla", s),
     "resnet pallas": lambda s: tb.case_resnet("pallas", s),
+    "resnet folded": lambda s: tb.case_resnet("folded", s),
     "encoder layer": lambda s: tb.case_encoder_layer("pallas", s),
     "encoder xla": lambda s: tb.case_encoder("xla", s),
     "encoder pallas": lambda s: tb.case_encoder("pallas", s),

@@ -22,7 +22,8 @@ on. ``record`` adds a span whose times the caller already holds.
 ``Counter(name)`` counts whether the recorder is on or off; every counter is
 registered by its name and ``drain()`` reports its value (counters are not
 reset by a drain): the kernels' launch counters ``k1.launches``,
-``k2.launches`` and ``k3.launches``. ``drain()`` returns and clears the
+``k2.launches`` and ``k3.launches``, and ``k3.folds``, the forwards that
+rebuilt the backbone's folded weights. ``drain()`` returns and clears the
 spans (``drain(keep=True)`` leaves them), with two clock anchors,
 ``(time.time_ns(), time.perf_counter_ns())``, one sampled at ``enable()``
 and one at the drain: they map the spans onto the profiler's wall clock
@@ -31,9 +32,10 @@ clock's drift against ``perf_counter`` over the recorded interval.
 
 Spans sit at the boundaries of requests, batches and steps (``serve.py``,
 ``eval/engine.py``, ``train/loop.py``, ``train/step.py``,
-``core/prefetch.py``), never inside the models' forward code: a forward
-launches thousands of kernels, and their device time needs events on the
-card. Where an operator reads them: ``cli/serve.py --trace`` answers them
+``core/prefetch.py``), and inside the models' forward code only around
+the backbone's rebuild of its folded weights (``backbone.fold``, once per
+weight version, ``models/resnet.py``): a forward launches thousands of
+kernels, and their device time needs events on the card. Where an operator reads them: ``cli/serve.py --trace`` answers them
 at ``GET /trace``, ``cli/test.py --trace`` writes the evaluation's to
 OUTPUT_DIR/trace, and TPU.PROFILE_STEP adds the profiled training steps'
 to its profiler trace, each a Chrome trace.

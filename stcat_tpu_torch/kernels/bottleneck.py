@@ -14,7 +14,9 @@ count in ``LAUNCHES``. The backward, like the JAX package's ``_vjp_bwd``,
 re-runs ``bottleneck_plain`` under autograd on the saved x and weights and
 takes its gradients (the TPU kernel has no backward kernel either), with
 cuDNN's TF32 off whatever the caller set. Only x and the folded weights are
-saved.
+saved. A forward without gradient may instead hand over ``Packed`` weights,
+which ``pack`` casts and lays out once (the backbone keeps them per weight
+version): it then launches with no cast, zero fill or copy of its own.
 
 x may be a channels-last view of an NCHW tensor (``permute(0, 2, 3, 1)`` of
 a ``torch.channels_last`` tensor is contiguous), so the backbone hands its
@@ -206,27 +208,43 @@ def _check(x: torch.Tensor, p: BlockWeights, dilation: int) -> None:
         raise ValueError("fused_bottleneck: x must start on a 16-byte boundary")
 
 
-def _launch(x: torch.Tensor, p: BlockWeights, dilation: int) -> torch.Tensor:
+class Packed(NamedTuple):
+    """A block's folded weights made ready once for one compute dtype and
+    device (``pack``): ``weights`` in that dtype with fp32 biases (what the
+    plain version takes), and on the card the kernel's operands in its
+    argument order, contiguous (bf16: packed B tiles)."""
+
+    weights: BlockWeights
+    operands: Tuple[Optional[torch.Tensor], ...]
+
+
+def pack(p: BlockWeights, dtype: torch.dtype) -> Packed:
+    """``p`` cast to ``dtype`` (biases fp32) and, on CUDA tensors, laid out
+    as the kernel reads it."""
+    w = BlockWeights(*[None if t is None else t.to(dtype if i % 2 == 0 else torch.float32)
+                       for i, t in enumerate(p)])
+    if not w.w1.is_cuda:
+        return Packed(w, ())
+    planes, cout = w.w1.shape[1], w.w3.shape[1]
+    if dtype == torch.bfloat16:
+        bn_p, bn_c = _tile_n(planes), _tile_n(cout)
+        w1 = _pack_b(w.w1.t()[:, None], bn_p)
+        w2 = _pack_b(w.w2.permute(3, 0, 1, 2).reshape(planes, 9, planes), bn_p)
+        w3 = _pack_b(w.w3.t()[:, None], bn_c)
+        wd = None if w.wd is None else _pack_b(w.wd.t()[:, None], bn_c)
+    else:
+        w1, w2, w3, wd = w.w1, w.w2, w.w3, w.wd
+    return Packed(w, tuple(None if t is None else t.contiguous()
+                           for t in (w1, w.b1, w2, w.b2, w3, w.b3, wd, w.bd)))
+
+
+def _launch(x: torch.Tensor, p: Packed, dilation: int) -> torch.Tensor:
     n, h, w, cin = x.shape
-    planes, cout = p.w1.shape[1], p.w3.shape[1]
+    planes, cout = p.weights.w1.shape[1], p.weights.w3.shape[1]
     dt = x.dtype
     ch, cw, stages = pick_tile(h, w, cin, planes, cout, dilation, x.element_size(),
-                               p.wd is not None)
-    # weights in the compute dtype, biases fp32, all contiguous; the
-    # tensor-core route takes its weights as packed B tiles
-    if dt == torch.bfloat16:
-        bn_p, bn_c = _tile_n(planes), _tile_n(cout)
-        w1 = _pack_b(p.w1.to(dt).t()[:, None], bn_p)
-        w2 = _pack_b(p.w2.to(dt).permute(3, 0, 1, 2).reshape(planes, 9, planes), bn_p)
-        w3 = _pack_b(p.w3.to(dt).t()[:, None], bn_c)
-        wd = None if p.wd is None else _pack_b(p.wd.to(dt).t()[:, None], bn_c)
-    else:
-        w1, w2, w3, wd = p.w1.to(dt), p.w2.to(dt), p.w3.to(dt), p.wd
-    wts = [w1.contiguous(), p.b1.float().contiguous(), w2.contiguous(), p.b2.float().contiguous(),
-           w3.contiguous(), p.b3.float().contiguous()]
-    if p.wd is not None:
-        wts += [wd.to(dt).contiguous(), p.bd.float().contiguous()]
-    ptrs = [t.data_ptr() for t in wts] + ([] if p.wd is not None else [None, None])
+                               p.weights.wd is not None)
+    ptrs = [None if t is None else t.data_ptr() for t in p.operands]
     out = torch.empty((n, h, w, cout), dtype=dt, device=x.device)
 
     lib = _build.load("bottleneck")
@@ -263,7 +281,7 @@ class _FusedBottleneck(torch.autograd.Function):
         if x.device.type == "cpu":
             return bottleneck_plain(x, p, dilation)
         _check(x, p, dilation)
-        return _launch(x, p, dilation)
+        return _launch(x, pack(p, x.dtype), dilation)
 
     @staticmethod
     def backward(ctx, g):
@@ -281,6 +299,16 @@ class _FusedBottleneck(torch.autograd.Function):
         return (dx, None, *dw)
 
 
-def fused_bottleneck(x: torch.Tensor, p: BlockWeights, dilation: int = 1) -> torch.Tensor:
-    """Stride-1 bottleneck block, differentiable; the kernel on CUDA tensors."""
-    return _FusedBottleneck.apply(x, dilation, *p)
+def fused_bottleneck(x: torch.Tensor, p: BlockWeights | Packed, dilation: int = 1) -> torch.Tensor:
+    """Stride-1 bottleneck block; the kernel on CUDA tensors. With
+    ``BlockWeights`` it is differentiable and packs the weights on every
+    call; with ``Packed`` weights (``pack``, made once) it serves a forward
+    without gradient and launches with them as they are."""
+    if not isinstance(p, Packed):
+        return _FusedBottleneck.apply(x, dilation, *p)
+    if torch.is_grad_enabled():
+        raise ValueError("fused_bottleneck: Packed weights serve a forward without gradient")
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, p.weights, dilation)
+    _check(x, p.weights, dilation)
+    return _launch(x, p, dilation)

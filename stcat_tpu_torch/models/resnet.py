@@ -8,11 +8,26 @@ without a copy.
 
 FrozenBN keeps torchvision's four buffers and applies
 scale = weight * rsqrt(running_var + 1e-5), bias = bias - running_mean * scale
-in x's dtype. Stride-1 FrozenBN blocks of the stages in TPU.CONV_STAGES go
-through the fused kernel when TPU.CONV_IMPL is "pallas", with FrozenBN folded
-into the conv weights as ``stcat_tpu``'s ``Bottleneck._fused`` does; the
-stem, the stride-2 first blocks and the GroupNorm variant use
-``F.conv2d``.
+in x's dtype. With gradients on, stride-1 FrozenBN blocks of the stages in
+TPU.CONV_STAGES go through the fused kernel when TPU.CONV_IMPL is "pallas",
+with FrozenBN folded into the conv weights as ``stcat_tpu``'s
+``Bottleneck._fused`` does; the stem, the stride-2 first blocks and the
+GroupNorm variant use ``F.conv2d``.
+
+A bf16 FrozenBN forward without gradient (``torch.no_grad``,
+``torch.inference_mode``, training's frozen prefix) folds FrozenBN into
+every convolution, whatever TPU.CONV_IMPL says: each stride-1 block is one
+fused-kernel launch, and each conv of the stem and the stride-2 blocks
+carries its folded bias, on the card with the ReLU and the residual add in
+cuDNN's epilogue (``torch.cudnn_convolution_relu``, ``_add_relu``; on the
+CPU in place after ``F.conv2d``). The folded weights are made once per
+weight version: each module keeps them keyed on the device and on the
+``data_ptr`` and ``_version`` of its conv weights and FrozenBN buffers, so
+``load_state_dict``, an optimizer step or an EMA copy rebuilds them on the
+next such forward (``refold``: the span ``backbone.fold``, one count in
+``k3.folds`` per forward that rebuilt any). fp32 forwards keep their
+rounding; K3 has no backward kernel, so forwards with gradient keep their
+route.
 
 Training: the stem and the first ``frozen_stages`` stages (1, or 4 when the
 whole body is frozen) run without gradients, where the JAX package puts its
@@ -25,16 +40,18 @@ in its backward (remat there would recompute it twice).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..core import trace
 from ..kernels import bottleneck as kbottle
 
 BN_EPS = 1e-5
+FOLDS = trace.Counter("k3.folds")
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -81,7 +98,68 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
                     conv.padding, conv.dilation)
 
 
-class Bottleneck(nn.Module):
+def _fold_conv(conv: nn.Conv2d, bn: FrozenBatchNorm2d, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weight in ``dtype``, fp32 bias) of ``bn(conv(x))`` as one
+    convolution; the weight in channels-last memory, as cuDNN takes it
+    beside a channels-last input."""
+    scale, bias = bn.consts()
+    w = conv.weight.float() * scale[:, None, None, None]
+    return w.to(dtype).contiguous(memory_format=torch.channels_last), bias
+
+
+def _conv_relu(x: torch.Tensor, conv: nn.Conv2d, w: torch.Tensor, b: torch.Tensor,
+               z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """relu(conv(x, w) + b [+ z]) with ``conv``'s geometry: on the card one
+    cuDNN call, bias, residual and ReLU in its epilogue; elsewhere
+    ``F.conv2d`` with the bias, then the add and ReLU in place."""
+    geometry = (conv.stride, conv.padding, conv.dilation, 1)
+    if x.is_cuda:
+        if z is None:
+            return torch.cudnn_convolution_relu(x, w, b, *geometry)
+        return torch.cudnn_convolution_add_relu(x, w, z, 1, b, *geometry)
+    y = F.conv2d(x, w, b, *geometry)
+    return (y if z is None else y.add_(z)).relu_()
+
+
+class _Folds:
+    """A module whose FrozenBN a forward without gradient folds into its
+    convolutions: ``_conv_bns`` are its (conv, FrozenBN) pairs,
+    ``_build_fold`` folds them, ``_fold`` holds (key, folded weights)."""
+
+    _fold: Tuple = (None, None)
+
+    @property
+    def folds(self) -> bool:
+        """Whether this forward folds FrozenBN (bf16, no gradient)."""
+        return (self.norm == "frozenbn" and self.dtype == torch.bfloat16
+                and not torch.is_grad_enabled())
+
+    def _fold_key(self, device: torch.device) -> Tuple:
+        return (device,) + tuple(
+            (t.data_ptr(), t._version) for conv, bn in self._conv_bns()
+            for t in (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var))
+
+    def _folded(self, device: torch.device):
+        refold([self], device)
+        return self._fold[1]
+
+
+def refold(modules: Iterable[_Folds], device: torch.device) -> None:
+    """Rebuild the folded weights of each module whose entry is missing or
+    was built from other tensors, all in one ``backbone.fold`` span counted
+    once in ``k3.folds``. The entries are made outside inference mode, so a
+    later ``no_grad`` forward can use them too."""
+    stale = [(m, key) for m in modules if (key := m._fold_key(device)) != m._fold[0]]
+    if not stale:
+        return
+    with trace.span("backbone.fold", modules=len(stale)), torch.inference_mode(False), \
+            torch.no_grad():
+        for m, key in stale:
+            m._fold = (key, m._build_fold())
+    FOLDS.add()
+
+
+class Bottleneck(_Folds, nn.Module):
     """torchvision bottleneck: 1x1 -> 3x3(stride, dilation) -> 1x1(x4) + skip."""
 
     def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
@@ -124,7 +202,36 @@ class Bottleneck(nn.Module):
             wd=wd, bd=bd,
         )
 
+    def _conv_bns(self) -> List[Tuple[nn.Conv2d, nn.Module]]:
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
+        return pairs + ([tuple(self.downsample)] if self.downsample is not None else [])
+
+    def _build_fold(self):
+        """Stride 1: the fused kernel's ``Packed`` weights; else each conv's
+        folded weight and bias for cuDNN, the projection's bias added to
+        conv3's."""
+        if self.stride == 1:
+            return kbottle.pack(self.folded_weights(), self.dtype)
+        (w1, b1), (w2, b2), (w3, b3), (wd, bd) = [_fold_conv(conv, bn, self.dtype)
+                                                  for conv, bn in self._conv_bns()]
+        return w1, b1.to(self.dtype), w2, b2.to(self.dtype), w3, (b3 + bd).to(self.dtype), wd
+
+    def _forward_folded(self, x: torch.Tensor) -> torch.Tensor:
+        folded = self._folded(x.device)
+        x = x.to(self.dtype)
+        if self.stride == 1:
+            # NCHW channels_last <-> NHWC contiguous are the same memory
+            x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            return kbottle.fused_bottleneck(x_nhwc, folded, self.dilation).permute(0, 3, 1, 2)
+        w1, b1, w2, b2, w3, b3, wd = folded
+        proj = self.downsample[0]
+        skip = F.conv2d(x, wd, None, proj.stride, proj.padding, proj.dilation)
+        out = _conv_relu(_conv_relu(x, self.conv1, w1, b1), self.conv2, w2, b2)
+        return _conv_relu(out, self.conv3, w3, b3, skip)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folds:
+            return self._forward_folded(x)
         dt = self.dtype
         if self.fused:
             # NCHW channels_last <-> NHWC contiguous are the same memory
@@ -139,7 +246,7 @@ class Bottleneck(nn.Module):
         return torch.relu(out + x)
 
 
-class ResNet(nn.Module):
+class ResNet(_Folds, nn.Module):
     """ResNet body returning the layer4 feature map (stride 32, or 16 with DC5)."""
 
     def __init__(self, depths: Sequence[int] = (3, 4, 23, 3), dc5: bool = False,
@@ -148,7 +255,7 @@ class ResNet(nn.Module):
                  frozen_stages: int = 1, remat_blocks: bool = False,
                  remat_stages: Sequence[int] = (1, 2, 3, 4)):
         super().__init__()
-        self.dtype, self.frozen_stages = dtype, frozen_stages
+        self.dtype, self.norm, self.frozen_stages = dtype, norm, frozen_stages
         self.remat_blocks, self.remat_stages = remat_blocks, tuple(remat_stages)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _norm(norm, 64)
@@ -178,13 +285,31 @@ class ResNet(nn.Module):
                 x = block(x)
         return x
 
+    def _conv_bns(self) -> List[Tuple[nn.Conv2d, nn.Module]]:
+        return [(self.conv1, self.bn1)]
+
+    def _build_fold(self):
+        w, b = _fold_conv(self.conv1, self.bn1, self.dtype)
+        return w, b.to(self.dtype)
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem's conv, norm and ReLU: x [N, H, W, 3] -> [N, 64, H/2,
+        W/2] (channels-last, compute dtype). Folded in bf16 without
+        gradient."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        if self.folds:
+            return _conv_relu(x, self.conv1, *self._folded(x.device))
+        return torch.relu(self.bn1(_conv(x, self.conv1, self.dtype)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, 3] -> [N, H/32, W/32, 2048] (NHWC, compute dtype)."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         frozen = min(self.frozen_stages, self.num_stages)
+        folding = frozen if torch.is_grad_enabled() else self.num_stages
         with torch.no_grad():  # the frozen prefix
-            x = torch.relu(self.bn1(_conv(x, self.conv1, self.dtype)))
-            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            if self.folds:  # every module this forward folds, rebuilt at once where stale
+                refold([self] + [b for i in range(folding) for b in getattr(self, f"layer{i + 1}")],
+                       x.device)
+            x = F.max_pool2d(self.stem(x), 3, stride=2, padding=1)
             for i in range(frozen):
                 x = self._stage(i, x)
         for i in range(frozen, self.num_stages):

@@ -17,7 +17,8 @@ their comment); the tests run seed 0. Two planted faults must each fail the
 check: attention logits rounded to bf16 before the softmax (both packages
 keep them fp32) and LayerNorm statistics in bf16 (both keep them fp32).
 The modules follow the model from the input down: preprocess, RoBERTa,
-ResNet (both CONV_IMPL routes; the JAX fused block in Pallas's interpreter),
+ResNet (both CONV_IMPL routes with gradients, FrozenBN folded without; the
+JAX fused block in Pallas's interpreter),
 the cross-modal encoder, the decoders and heads, the whole STCATNet, the
 postprocess, the train step's losses and gradients, and ``do_eval`` on the
 learning proof's two clips. Widths are tiny: this is about rounding policy.
@@ -334,10 +335,16 @@ def _state_dict_of(write) -> dict:
     return w.sd
 
 
-def case_resnet(conv_impl: str, seed=SEED):
+def case_resnet(route: str, seed=SEED):
     """The stem (conv + FrozenBN), layer1's first block (stride 1: the fused
     block on the "pallas" route) and layer2's (stride 2), by their outputs
-    inside the backbone."""
+    inside the backbone. "xla" and "pallas" run the port with gradients on
+    (the stem, which never takes one, on its own), "folded" without: every
+    FrozenBN folded into its conv, layer1's block through the fused kernel,
+    held to the JAX package's "pallas" route; its stem is compared after
+    the ReLU, which the card's folded stem runs in cuDNN's epilogue (the
+    ReLU of JAX's stem_bn is exact in either precision)."""
+    conv_impl = "pallas" if route == "folded" else route
     from stcat_tpu.kernels import conv as jconv
     from stcat_tpu.models.resnet import build_resnet as j_build
     from stcat_tpu_torch.models.resnet import build_resnet as p_build
@@ -368,17 +375,21 @@ def case_resnet(conv_impl: str, seed=SEED):
     finally:
         jconv._INTERPRET = saved
     ours = p_build("resnet50", False, dtype=torch.bfloat16, depths=(1, 1, 1, 1),
-                   conv_impl=conv_impl).eval()
+                   conv_impl=conv_impl, frozen_stages=0).eval()
     ours.load_state_dict(_state_dict_of(lambda w: pconv.backbone(w, var["params"], consts)),
                          strict=True)
     got = {}
     hooks = [mod.register_forward_hook(lambda m, a, o, n=n: got.__setitem__(n, o))
              for n, mod in (("stem_bn", ours.bn1), ("layer1_0", ours.layer1[0]),
                             ("layer2_0", ours.layer2[0]))]
-    with torch.no_grad():
+    with torch.no_grad() if route == "folded" else torch.enable_grad():
         ours(T(x))
+        stem = ours.stem(T(x))
     for h in hooks:
         h.remove()
+    if route == "folded":
+        got["stem_bn"] = stem
+        outs = [dict(o, stem_bn=jnp.maximum(o["stem_bn"], 0)) for o in outs]
     return {n: (*(o[n] for o in outs), _nhwc(got[n], outs[0][n].shape)) for n in names}
 
 
@@ -720,12 +731,12 @@ def test_roberta_bf16_matches_jax(case):
     hold(case_roberta_layer() if case == "layer" else case_roberta_encoder())
 
 
-@pytest.mark.parametrize("conv_impl", ["xla", "pallas"])
-def test_resnet_bf16_matches_jax(conv_impl):
-    """The stem, layer1's stride-1 block (the fused block on "pallas": the
-    port's plain version against JAX's kernel in Pallas's interpreter) and
-    layer2's stride-2 block."""
-    hold(case_resnet(conv_impl))
+@pytest.mark.parametrize("route", ["xla", "pallas", "folded"])
+def test_resnet_bf16_matches_jax(route):
+    """The stem, layer1's stride-1 block (the fused block on "pallas" and
+    "folded": the port's plain version against JAX's kernel in Pallas's
+    interpreter) and layer2's stride-2 block."""
+    hold(case_resnet(route))
 
 
 @pytest.mark.parametrize("case", ["layer", "stack_xla", "stack_pallas"])

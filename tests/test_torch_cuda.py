@@ -107,6 +107,9 @@ def test_fused_bottleneck_kernel_matches_plain(dev, dtype, tol, n, h, w, cin, p,
     before = pkb.LAUNCHES.count
     out = pkb.fused_bottleneck(x, bw, dil)
     assert pkb.LAUNCHES.count == before + 1
+    with torch.no_grad():  # weights packed once: the same launch, the same bits
+        assert torch.equal(pkb.fused_bottleneck(x, pkb.pack(bw, dtype), dil), out)
+    assert pkb.LAUNCHES.count == before + 2
     ref = pkb.bottleneck_plain(x, bw, dil)
     torch.cuda.synchronize()
     assert out.shape == (n, h, w, cout) and out.dtype == dtype

@@ -344,11 +344,20 @@ def test_bottleneck_plain_matches_pallas_row_chunks(monkeypatch):
     np.testing.assert_allclose(ours, pallas, atol=ATOL)
 
 
-def test_bottleneck_wrapper_on_cpu_runs_plain_without_launch():
+@pytest.mark.parametrize("packed", [False, True])
+def test_bottleneck_wrapper_on_cpu_runs_plain_without_launch(packed):
+    """BlockWeights, or weights ``pack``ed once for a forward without
+    gradient (which refuses one with gradients on)."""
     rng = np.random.RandomState(2)
     bw = _port_block(make_block(rng, 16, 8, True))
     x = torch.from_numpy(rng.randn(1, 6, 5, 16).astype(np.float32))
-    out = pkb.fused_bottleneck(x, bw, 1)
+    if packed:
+        with pytest.raises(ValueError, match="without gradient"):
+            pkb.fused_bottleneck(x, pkb.pack(bw, x.dtype), 1)
+        with torch.no_grad():
+            out = pkb.fused_bottleneck(x, pkb.pack(bw, x.dtype), 1)
+    else:
+        out = pkb.fused_bottleneck(x, bw, 1)
     assert pkb.LAUNCHES.count == 0
     torch.testing.assert_close(out, pkb.bottleneck_plain(x, bw, 1), rtol=0, atol=0)
 

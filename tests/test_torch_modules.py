@@ -129,6 +129,176 @@ def test_resnet(name, conv_impl, dc5):
 
 
 # --------------------------------------------------------------------------
+# ResNet: FrozenBN folded into the convolutions on bf16 forwards without
+# gradient (K3 for the stride-1 blocks; on the CPU its plain version)
+# --------------------------------------------------------------------------
+
+# layer1.0 (stride 1, projection) and layer2.1 (stride 1, identity) take K3
+FOLD_DEPTHS, FOLD_K3 = (1, 2, 1, 1), 2
+
+
+def _fold_resnet(dtype=torch.bfloat16, frozen_stages=0):
+    """An R50-shaped body with seeded weights and non-trivial FrozenBN
+    statistics (the same for every dtype)."""
+    from stcat_tpu_torch.models.resnet import FrozenBatchNorm2d, build_resnet
+
+    torch.manual_seed(0)
+    m = build_resnet("resnet50", False, dtype=dtype, depths=FOLD_DEPTHS,
+                     frozen_stages=frozen_stages).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, FrozenBatchNorm2d):
+                for b in mod.buffers():
+                    b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+    return m
+
+
+def _fold_input():
+    return torch.from_numpy((np.random.RandomState(2).randn(2, 64, 64, 3) * 0.5)
+                            .astype(np.float32))
+
+
+@pytest.fixture
+def k3_counted(monkeypatch):
+    """K3's plain version (what its wrapper runs on CPU tensors) counted in
+    ``k3.launches``, as the kernel counts on the card."""
+    from stcat_tpu_torch.kernels import bottleneck as pkb
+
+    plain = pkb.bottleneck_plain
+
+    def counted(*args):
+        pkb.LAUNCHES.add()
+        return plain(*args)
+
+    monkeypatch.setattr(pkb, "bottleneck_plain", counted)
+    return pkb.LAUNCHES
+
+
+def _grad_mode(mode):
+    return {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+            "inference_mode": torch.inference_mode}[mode]()
+
+
+@pytest.mark.parametrize("mode,dtype,frozen,k3,folds", [
+    ("no_grad", "bfloat16", 0, FOLD_K3, 1),
+    ("inference_mode", "bfloat16", 0, FOLD_K3, 1),
+    ("grad", "bfloat16", 0, 0, 1),   # the parent route; the stem never takes a gradient
+    ("grad", "bfloat16", 1, 1, 1),   # training's frozen prefix: layer1's block
+    ("no_grad", "float32", 0, 0, 0),
+    ("inference_mode", "float32", 0, 0, 0),
+])
+def test_backbone_takes_k3_without_gradient_in_bf16(k3_counted, mode, dtype, frozen, k3, folds):
+    """k3.launches rises by one per stride-1 block on a bf16 forward without
+    gradient, and by none with gradients on (past the frozen prefix) or at
+    fp32; k3.folds counts the one build."""
+    from stcat_tpu_torch.models.resnet import FOLDS
+
+    m = _fold_resnet(getattr(torch, dtype), frozen)
+    launches, built = k3_counted.count, FOLDS.count
+    with _grad_mode(mode):
+        m(_fold_input())
+    assert (k3_counted.count - launches, FOLDS.count - built) == (k3, folds)
+
+
+def _fold_part(m, part):
+    """(the part as a callable, its input): the stem and the whole body take
+    the clip, a block the activations it would see."""
+    if part in ("stem", "backbone"):
+        return (m.stem if part == "stem" else m), _fold_input()
+    block = m.get_submodule(part)
+    x = torch.relu(torch.from_numpy(np.random.RandomState(3).randn(
+        2, block.conv1.in_channels, 16, 16).astype(np.float32)))
+    return block, x.contiguous(memory_format=torch.channels_last)
+
+
+def _unfolded(m, part):
+    """The part as its route with gradients on runs it: every conv, then
+    FrozenBN (the backbone: the stem through that route too)."""
+    if part != "backbone":
+        return _fold_part(m, part)[0]
+
+    def body(x):
+        y = torch.nn.functional.max_pool2d(m.stem(x), 3, stride=2, padding=1)
+        for i in range(m.num_stages):
+            y = m._stage(i, y)
+        return y.permute(0, 2, 3, 1)
+    return body
+
+
+@pytest.mark.parametrize("part", ["backbone", "stem", "layer1.0", "layer2.1", "layer2.0",
+                                  "layer3.0", "layer4.0"])
+def test_folded_route_matches_the_unfolded_one(part):
+    """Each folded part (the stem and the stride-2 blocks through cuDNN with
+    the folded bias, the stride-1 blocks through K3, the whole body) against
+    its unfolded bf16 route with gradients on, by test_torch_bf16.py's bound
+    with fp32 as the reference: the folded route rounds no further from fp32
+    than M x the unfolded one's + F, nor lies further from it."""
+    from test_torch_bf16 import F as FLOOR, M
+
+    m16, m32 = _fold_resnet(), _fold_resnet(torch.float32)
+    fn, x = _fold_part(m16, part)
+    with torch.no_grad():
+        folded = fn(x.to(torch.bfloat16)).float()
+        want = _fold_part(m32, part)[0](x).float()
+    with torch.enable_grad():
+        unfolded = _unfolded(m16, part)(x.to(torch.bfloat16)).detach().float()
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    e_lib, e_fold, d = rel(unfolded, want), rel(folded, want), rel(folded, unfolded)
+    assert 0 < e_lib and e_fold <= M * e_lib + FLOOR and d <= M * e_lib + FLOOR, \
+        (e_lib, e_fold, d)
+
+
+@pytest.mark.parametrize("change", ["none", "load_state_dict", "conv_weight", "bn_buffer",
+                                    "stem_bn_buffer"])
+def test_fold_cache_builds_once_per_weight_version(change):
+    """Two forwards build the folded weights once; load_state_dict, or an
+    in-place change to one conv weight or one FrozenBN buffer, rebuilds them
+    exactly once, to what a fresh model with those weights computes."""
+    from stcat_tpu_torch.models.resnet import FOLDS
+
+    m, x = _fold_resnet(), _fold_input()
+    with torch.no_grad():
+        m(x)
+        built = FOLDS.count
+        m(x)
+        assert FOLDS.count == built
+        if change == "load_state_dict":
+            sd = m.state_dict()
+            sd["layer3.0.conv2.weight"] = sd["layer3.0.conv2.weight"] * 1.5
+            m.load_state_dict(sd)
+        elif change == "conv_weight":
+            m.layer2[1].conv2.weight.mul_(1.5)
+        elif change == "bn_buffer":
+            m.layer1[0].bn3.running_var.mul_(2.0)
+        elif change == "stem_bn_buffer":
+            m.bn1.bias.add_(0.25)
+        got = m(x)
+        assert FOLDS.count == built + (change != "none")
+        m(x)
+        assert FOLDS.count == built + (change != "none")
+        fresh = _fold_resnet()
+        fresh.load_state_dict(m.state_dict())
+        assert torch.equal(got, fresh(x))
+
+
+def test_fold_built_in_inference_mode_serves_no_grad():
+    """Weights folded under inference_mode are ordinary tensors, and a later
+    no_grad forward uses them without a rebuild."""
+    from stcat_tpu_torch.models.resnet import FOLDS
+
+    m, x = _fold_resnet(), _fold_input()
+    with torch.inference_mode():
+        served = m(x)
+    built = FOLDS.count
+    with torch.no_grad():
+        again = m(x)
+    assert FOLDS.count == built and torch.equal(served, again)
+    assert not m.layer1[0]._fold[1].weights.w1.is_inference()
+    assert not m.layer2[0]._fold[1][0].is_inference()
+
+
+# --------------------------------------------------------------------------
 # text encoder
 # --------------------------------------------------------------------------
 
