@@ -9,6 +9,18 @@ mixed precision: every product runs through ``Ops``, which is float32
 precision below the bfloat16 the recipes state). Dropout draws every keep mask from the generator handed to
 ``forward`` with ``torch.rand(x.shape)``, in the port's order, so the same
 generator seed replays the port's masks. Imports neither the port nor JAX.
+
+``MODEL.VISION_BACKBONE.DILATION`` (DC5) follows torchvision's
+``replace_stride_with_dilation = [False, False, True]``: layer4 keeps
+stride 1, its first block's 3x3 keeps the dilation before it (1) beside a
+stride-1 projection, and every later layer4 3x3 has dilation 2 and padding
+2. The port's ``ResNet`` puts dilation 2 on layer4.0's 3x3 too; this
+reference does not follow it there.
+
+``arch_of`` refuses, before any set-up, a configuration that sets a key the
+port's model or the training loss reads to a value this reference does not
+model (``ONLY``); ``MODELLED`` names the keys it follows and ``INERT`` those
+that change neither the forward nor the loss.
 """
 
 from __future__ import annotations
@@ -160,12 +172,14 @@ class FrozenBN(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, ops: Ops, cin: int, planes: int, stride: int, downsample: bool):
+    def __init__(self, ops: Ops, cin: int, planes: int, stride: int, downsample: bool,
+                 dilation: int = 1):
         super().__init__()
-        self.ops, self.stride = ops, stride
+        self.ops, self.stride, self.dilation = ops, stride, dilation
         self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
         self.bn1 = FrozenBN(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=dilation,
+                               dilation=dilation, bias=False)
         self.bn2 = FrozenBN(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = FrozenBN(planes * 4)
@@ -175,7 +189,8 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         c = self.ops.conv
         out = torch.relu(self.bn1(c(x, self.conv1.weight)))
-        out = torch.relu(self.bn2(c(out, self.conv2.weight, self.stride, 1)))
+        out = torch.relu(self.bn2(c(out, self.conv2.weight, self.stride, self.dilation,
+                                     self.dilation)))
         out = self.bn3(c(out, self.conv3.weight))
         if self.downsample is not None:
             x = self.downsample[1](c(x, self.downsample[0].weight, self.stride))
@@ -185,19 +200,25 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """NHWC frames in, NHWC layer4 features out; the stem and the first
     ``frozen`` stages run without gradients; ``remat`` recomputes the
-    trainable blocks in the backward (memory only: the same arithmetic)."""
+    trainable blocks in the backward (memory only: the same arithmetic).
+    ``dc5`` trades layer4's stride for dilation as torchvision's
+    ``_make_layer`` does: the stage's first block keeps the dilation before
+    it, the later ones take the stride's."""
 
-    def __init__(self, ops: Ops, depths=(3, 4, 23, 3), frozen: int = 1):
+    def __init__(self, ops: Ops, depths=(3, 4, 23, 3), frozen: int = 1, dc5: bool = False):
         super().__init__()
         self.ops, self.frozen, self.remat = ops, frozen, False
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBN(64)
-        cin = 64
+        cin, rate = 64, 1
         for i, (depth, planes) in enumerate(zip(depths, (64, 128, 256, 512))):
+            stride, first_rate = (1 if i == 0 else 2), rate
+            if dc5 and i == 3:
+                rate, stride = rate * stride, 1
             blocks = []
             for j in range(depth):
-                blocks.append(Bottleneck(ops, cin, planes, (1 if i == 0 else 2) if j == 0 else 1,
-                                         j == 0))
+                blocks.append(Bottleneck(ops, cin, planes, stride if j == 0 else 1, j == 0,
+                                         first_rate if j == 0 else rate))
                 cin = planes * 4
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
 
@@ -652,8 +673,8 @@ class STCAT(nn.Module):
         a, d = arch, arch["HIDDEN"]
         self.arch, self.d = a, d
         frozen = 4 if a["VIS_BACKBONE_LR"] <= 0 else 1
-        self.vis_encoder = nn.ModuleList([_Backbone(ResNet(ops, tuple(a["DEPTHS"]), frozen)),
-                                          _NoParams()])
+        body = ResNet(ops, tuple(a["DEPTHS"]), frozen, a["DILATION"])
+        self.vis_encoder = nn.ModuleList([_Backbone(body), _NoParams()])
         self.input_proj = nn.Conv2d(2048, d, 1)
         self.ops = ops
         self.text_encoder = TextEncoder(ops, a["TEXT"], d)
@@ -707,14 +728,82 @@ class STCAT(nn.Module):
         return out
 
 
+# Configuration keys (dotted, the port's names) that the reference follows:
+# the model's here through ``arch_of``, the loss's in ``reference/train.py``
+# and the inputs' in ``reference/infer.py``.
+MODELLED = (
+    "MODEL.VISION_BACKBONE.DEPTHS", "MODEL.VISION_BACKBONE.DILATION",
+    *(f"MODEL.TEXT_MODEL.{k}" for k in ("VOCAB_SIZE", "HIDDEN", "LAYERS", "HEADS",
+                                        "INTERMEDIATE", "MAX_POS", "DROPOUT")),
+    *(f"MODEL.STCAT.{k}" for k in ("HIDDEN", "HEADS", "FFN_DIM", "ENC_LAYERS", "DEC_LAYERS",
+                                   "DROPOUT", "HEAD_DROPOUT")),
+    "SOLVER.VIS_BACKBONE_LR", "INPUT.MAX_VIDEO_LEN", "INPUT.PIXEL_MEAN", "INPUT.PIXEL_STD",
+    *(f"SOLVER.{k}" for k in ("BBOX_COEF", "GIOU_COEF", "TEMP_COEF", "ATTN_COEF",
+                              "ACTIONESS_COEF", "SIGMA", "EOS_COEF")),
+)
+
+# Keys the reference models at these values only (the port's default among
+# them, so a file that leaves one out passes); ``arch_of`` refuses any other.
+ONLY = {
+    "MODEL.VISION_BACKBONE.NAME": ("resnet101", "resnet50"),  # no GroupNorm ("-gn") body
+    "MODEL.VISION_BACKBONE.POS_ENC": ("sine",),
+    "MODEL.VISION_BACKBONE.FREEZE": (False,),  # the reference trains the body at its LR
+    "MODEL.TEXT_MODEL.FREEZE": (False,),
+    "MODEL.TEXT_MODEL.LOCAL_PATH": ("",),  # the reference tokenizes by hash
+    "MODEL.USE_LSTM": (False,),
+    "MODEL.QUERY_NUM": (1,),  # one query per frame
+    "MODEL.STCAT.QUERY_DIM": (4,),  # anchors (cx, cy, w, h)
+    "MODEL.STCAT.USE_LEARN_TIME_EMBED": (False,),
+    "MODEL.STCAT.USE_ACTION": (True,),
+    "MODEL.STCAT.FROM_SCRATCH": (True,),  # projection-free cross-attention
+    "SOLVER.USE_ATTN": (True,),
+    "SOLVER.USE_AUX_LOSS": (True,),
+}
+
+# Keys that change neither the forward nor the loss the benchmark compares
+# (a trailing "." names a whole group), each with why.
+INERT = {
+    "MODEL.WEIGHT": "a weight file to load; the benchmark draws the weights from the seed "
+                    "and hands the same to both sides",
+    "MODEL.EMA": "the averaged copy of the weights the training step keeps; no compared "
+                 "forward, loss or update reads it",
+    "MODEL.EMA_DECAY": "the same averaged copy's rate",
+    "MODEL.TEXT_MODEL.NAME": "read by no code of the port; the text encoder's sizes are the "
+                             "keys beside it",
+    "MODEL.TEXT_MODEL.ALLOW_HASH_TOKENIZER": "only lets the port run the hash tokenizer, which "
+                                             "is the one the reference runs",
+    "MODEL.LSTM.": "read only with MODEL.USE_LSTM, which is refused",
+}
+
+_ABSENT = object()
+
+
+def _lookup(cfg: Dict, key: str):
+    node = cfg
+    for part in key.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return _ABSENT
+        node = node[part]
+    return node
+
+
 def arch_of(cfg: Dict) -> Dict:
     """The sizes the reference reads, from a configuration file's merged
-    recipe (nested dicts with the port's key names)."""
+    recipe (nested dicts with the port's key names). Raises ValueError,
+    naming the key and its value, for a key of ``ONLY`` set to a value the
+    reference does not model."""
+    for key, values in ONLY.items():
+        value = _lookup(cfg, key)
+        if value is not _ABSENT and value not in values:
+            raise ValueError(f"{key} = {value!r}: the plain reference models only "
+                             f"{' or '.join(map(repr, values))}, so it cannot judge this "
+                             f"configuration")
     m, s = cfg["MODEL"], cfg["MODEL"]["STCAT"]
     depths = {"resnet101": (3, 4, 23, 3), "resnet50": (3, 4, 6, 3)}
     vb = m["VISION_BACKBONE"]
     return {
         "DEPTHS": tuple(vb.get("DEPTHS") or depths[vb["NAME"]]),
+        "DILATION": bool(vb.get("DILATION", False)),
         "VIS_BACKBONE_LR": cfg["SOLVER"]["VIS_BACKBONE_LR"],
         "HIDDEN": s["HIDDEN"], "HEADS": s["HEADS"], "FFN_DIM": s["FFN_DIM"],
         "ENC_LAYERS": s["ENC_LAYERS"], "DEC_LAYERS": s["DEC_LAYERS"],

@@ -74,12 +74,13 @@ class Spec:
 
     def __init__(self, bench, cell, seed, seconds, trace, device, reference_ops=None,
                  limits=None, conf=None, traffic=None, t_start=None):
-        from portbench.reference.model import FP32
+        from portbench.reference.model import FP32, arch_of
         from portbench.trace import Spans
 
         self.bench, self.cell, self.seed, self.seconds = bench, cell, seed, seconds
         self.trace, self.device = bool(trace), device
         self.conf = conf if conf is not None else harness.config_of(bench, cell)
+        arch_of(self.conf["config"])  # a key the reference does not model stops the run here
         self.traffic = traffic if traffic is not None else harness.traffic_of(cell)
         self.limits = limits if limits is not None else harness.limits_of(cell)
         self.reference_ops = reference_ops or FP32
