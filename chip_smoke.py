@@ -15,8 +15,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
      kernel, fp32 on its CUDA-core one, Sq < 8 on the row kernel) and K3
      (bottleneck; bf16 on its tensor-core kernel, fp32 on its CUDA-core
      one) at the serving path's shapes (4 lanes x 64 frames, canvas
-     448x608, 14x19 feature grid, L = 26), K2 (attention backward, routed as
-     K1) at the training path's (one 64-frame clip per microbatch), each
+     448x608, 14x19 feature grid, L = 26; and DC5's, a 28x38 grid: K1 at
+     1091 keys, K3's layer4.0 projection at dilation 1 and layer4.1-2 at
+     dilation 2; K3's shapes and arithmetic come from
+     portbench/k3_roofline.py, the bf16 and HBM peaks from
+     portbench/roofline.py), K2 (attention backward, routed as K1) at the
+     training path's (one 64-frame clip per microbatch), each
      call site and stage also with its TFLOP/s, share of the bound and ratio
      to the library call; K2 runs twice per call site and must be bitwise
      equal; and the reading behind K3's backward recompute running without
@@ -29,7 +33,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
      6/6/6 layers, 448 px) with seeded random weights answers three requests
      through the port's MicroBatcher; K1's and K3's launch counts must rise
      and K2's stay 0; one served batch is re-run with the kernels swapped
-     for their plain versions and the outputs compared;
+     for their plain versions and the outputs compared; then the recipe
+     with DC5 serves two requests in one forward, which must launch K1 24
+     times and K3 31 (two at dilation 2), and is compared the same way;
   4. training: the same recipe with STCAT.DROPOUT 0 (so attention takes the
      kernel route), GRAD_ACCUM 2, on two seeded 64-frame clips: first one
      forward+backward with the kernels (twice) and one with their plain
@@ -143,8 +149,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
      rms, the phase's seconds.
 Every phase prints its seconds. The line before the last is a JSON object
 listing every kernel's numbers, with its launches on each phase's path
-(launches_by_path: serving, training, loop, cli, lstm, inputs, distributed,
-learning, full_scale; distributed_launches_per_rank by layout); the last line is the
+(launches_by_path: serving, serving_dc5, training, loop, cli, lstm, inputs,
+distributed, learning, full_scale; distributed_launches_per_rank by layout)
+and, for K1 and K3, the same times over a DC5 forward (dc5); the last line is the
 device record.
 """
 
@@ -184,22 +191,35 @@ from stcat_tpu_torch.train.step import (  # noqa: E402
 )
 import torch_full_scale as full_scale  # noqa: E402
 import torch_learning  # noqa: E402
+from portbench import roofline  # noqa: E402
+from portbench.k3_roofline import k3_blocks, k3_call_work  # noqa: E402
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# fp32 outside the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+# published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores
+# (the benchmark's), fp32 outside the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_BF16_FLOPS, torch.float32: 67e12}
+PEAK_BYTES = roofline.PEAK_BYTES
 
-# main path: 2 requests x 2 streams = 4 lanes of 64 frames, 8 heads, d = 256
+# main path: 2 requests x 2 streams = 4 lanes of 64 frames, 8 heads, d = 256,
+# the 448 x 608 canvas: a 14 x 19 grid, 28 x 38 with DC5 (stride 16)
 LANES, FRAMES, HEADS, HW, L = 4, 64, 8, 14 * 19, 26
+DEPTHS, CANVAS, HW_DC5 = (3, 4, 23, 3), (448, 608), 28 * 38
 S = 1 + HW + L  # encoder spatial sequence: frame-CLS + grid + text
 M = HW + L      # decoder memory
-K1_CASES = [  # name, BH, Sq, Sk, Dk, Dv, launches per served forward
-    ("encoder spatial", LANES * FRAMES * HEADS, S, S, 32, 32, 6),
-    ("encoder temporal", LANES * HEADS, FRAMES + 1, FRAMES + 1, 32, 32, 6),
-    ("spatial-decoder concat cross", LANES * FRAMES * HEADS, 1, M, 64, 32, 6),
-    ("time-decoder cross", LANES * FRAMES * HEADS, 1, M, 32, 32, 6),
-]
+
+
+def k1_cases(hw: int):
+    """name, BH, Sq, Sk, Dk, Dv, launches per served forward on an hw grid."""
+    s, m = 1 + hw + L, hw + L
+    return [
+        ("encoder spatial", LANES * FRAMES * HEADS, s, s, 32, 32, 6),
+        ("encoder temporal", LANES * HEADS, FRAMES + 1, FRAMES + 1, 32, 32, 6),
+        ("spatial-decoder concat cross", LANES * FRAMES * HEADS, 1, m, 64, 32, 6),
+        ("time-decoder cross", LANES * FRAMES * HEADS, 1, m, 32, 32, 6),
+    ]
+
+
+K1_CASES = k1_cases(HW)
+K1_DC5_CASES = k1_cases(HW_DC5)   # 1091 keys in the encoder's spatial attention
 N = LANES * FRAMES
 # training path: one 64-frame clip per microbatch (GRAD_ACCUM 2 of a 2-clip batch)
 TRAIN_FRAMES, TRAIN_STEPS, ACCUM = 64, 3, 2
@@ -210,14 +230,25 @@ K2_CASES = [  # name, BH, Sq, Sk, Dk, Dv, launches per training microbatch
     ("time-decoder cross", TRAIN_FRAMES * HEADS, 1, M, 32, 32, 6),
 ]
 K1_PER_MICROBATCH = sum(c[-1] for c in K1_CASES)   # 24: K2 runs once per K1 launch
-K3_CASES = [  # name, H, W, Cin, P, projection, launches per served forward
-    ("layer1 block0", 112, 152, 64, 64, True, 1),
-    ("layer1", 112, 152, 256, 64, False, 2),
-    ("layer2", 56, 76, 512, 128, False, 3),
-    ("layer3", 28, 38, 1024, 256, False, 22),
-    ("layer4", 14, 19, 2048, 512, False, 2),
-]
-K3_PER_MICROBATCH = sum(c[-1] for c in K3_CASES)   # 30 stride-1 blocks
+
+
+def k3_cases(dc5: bool):
+    """(block, launches per served forward): the body's stride-1 blocks
+    (``portbench/k3_roofline.py``) grouped by shape, each group named by
+    its first block."""
+    groups = {}
+    for b in k3_blocks(DEPTHS, dc5, CANVAS):
+        groups.setdefault(b._replace(name=""), [b, 0])[1] += 1
+    return [tuple(g) for g in groups.values()]
+
+
+K3_CASES = k3_cases(False)
+K3_PER_MICROBATCH = sum(n for _, n in K3_CASES)   # 30 stride-1 blocks in 5 shapes
+# DC5: layer4's three blocks at 28 x 38, layer4.0 a projection at dilation 1
+# and layer4.1-2 at dilation 2
+K3_DC5_CASES = k3_cases(True)
+K3_PER_DC5_FORWARD = sum(n for _, n in K3_DC5_CASES)                           # 31
+K3_DILATED_PER_DC5_FORWARD = sum(n for b, n in K3_DC5_CASES if b.dilation == 2)  # 2
 # K1, K3: max |kernel - plain| / max(1, max |plain|); K2: each of dq, dk, dv
 # and dbias against its own max |plain|. fp32 differs only in summation
 # order over K <= 9*512 terms; bf16 also rounds p (K1), x1/y2 (K3) and the
@@ -318,9 +349,9 @@ def new_total():
                           "ops_ms", "bytes_ms"), 0.0)
 
 
-def record(total, label, dtype, err, rel, times, flops, nbytes, per_fwd):
-    """Check the error, print one shape's line and its rates, add it to the
-    kernel's total (times weighted by launches per forward, bf16 only)."""
+def record(label, dtype, err, rel, times, flops, nbytes) -> dict:
+    """Check the error, print one shape's line and its rates; returns the
+    shape's times, bound and error for ``forward_total``."""
     if not rel <= TOL[dtype]:
         raise AssertionError(f"{label} {dtype}: rel err {rel:.3e} > {TOL[dtype]}")
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -332,11 +363,19 @@ def record(total, label, dtype, err, rel, times, flops, nbytes, per_fwd):
           f"library={lib_ms:.4f} ms bound={bound:.4f} ms ({by})")
     print(f"    {flops / ms / 1e9:.2f} TFLOP/s, {100 * bound / ms:.1f}% of the bound, "
           f"kernel / library {ms / lib_ms:.3f}")
-    if dtype == torch.bfloat16:
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                         ("library_ms", lib_ms), ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
-            total[key] += per_fwd * val
-    total["max_abs_err"] = max(total["max_abs_err"], err)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "library_ms": lib_ms,
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "max_abs_err": err}
+
+
+def forward_total(measured: dict, launches) -> dict:
+    """A kernel's total over one forward (or microbatch): each shape's
+    ``record`` times its launches there, (shape, launches) in ``launches``;
+    the largest error."""
+    total = new_total()
+    for shape, n in launches:
+        for key, val in measured[shape].items():
+            total[key] = max(total[key], val) if key == "max_abs_err" else total[key] + n * val
+    return total
 
 
 def attn_inputs(gen, bh, sq, sk, dk, dv, dtype, grad: bool):
@@ -362,9 +401,14 @@ def device_line(kernel: str, fn, library) -> str:
 
 
 def check_k1(gen, dtype):
-    total = new_total()
+    """K1 against attention_plain at each call site of the served forward,
+    R101's and DC5's (a 28 x 38 grid), each shape once; returns the two
+    forwards' totals."""
+    measured = {}
     isz = torch.finfo(dtype).bits // 8
-    for name, bh, sq, sk, dk, dv, per_fwd in K1_CASES:
+    for name, bh, sq, sk, dk, dv, _ in K1_CASES + K1_DC5_CASES:
+        if (bh, sq, sk, dk, dv) in measured:
+            continue
         q, k, v, bias, _ = attn_inputs(gen, bh, sq, sk, dk, dv, dtype, grad=False)
         out = kattn.flash_attention(q, k, v, bias)
         ref = kattn.attention_plain(q, k, v, bias)
@@ -382,11 +426,13 @@ def check_k1(gen, dtype):
                  time_ms(library, 10))
         flops = 2.0 * bh * sq * sk * (dk + dv)
         nbytes = isz * (bh * sq * dk + bh * sk * dk + bh * sk * dv + bh * sq * dv) + 4 * bh * sk
-        record(total, f"K1 {name:30s} BH={bh} Sq={sq} Sk={sk} Dk={dk} Dv={dv}", dtype, err,
-               rel, times, flops, nbytes, per_fwd)
+        measured[(bh, sq, sk, dk, dv)] = record(
+            f"K1 {name:30s} BH={bh} Sq={sq} Sk={sk} Dk={dk} Dv={dv}", dtype, err, rel, times,
+            flops, nbytes)
         print(device_line("K1 attention forward", kernel, lambda timer: timer(library)))
         del q, k, v, bias, out, ref
-    return total
+    return tuple(forward_total(measured, [(c[1:6], c[6]) for c in cases])
+                 for cases in (K1_CASES, K1_DC5_CASES))
 
 
 def _sdpa_bwd_ms(q, k, v, mask, g, timer) -> float:
@@ -406,9 +452,9 @@ def check_k2(gen, dtype):
     max |diff| relative to that output's own max |plain| (no floor: the
     gradients are far below 1); a second run must match the first bitwise
     (no atomics, on every route)."""
-    total = new_total()
+    measured = {}
     isz = torch.finfo(dtype).bits // 8
-    for name, bh, sq, sk, dk, dv, per_mb in K2_CASES:
+    for name, bh, sq, sk, dk, dv, _ in K2_CASES:
         q, k, v, bias, g = attn_inputs(gen, bh, sq, sk, dk, dv, dtype, grad=True)
         mask = bias[:, None, :].to(dtype)
 
@@ -439,14 +485,15 @@ def check_k2(gen, dtype):
         flops = 2.0 * bh * sq * sk * (3 * dk + 3 * dv)
         nbytes = isz * 2 * (bh * sq * dk + bh * sk * dk + bh * sk * dv) + isz * bh * sq * dv \
             + 4 * 2 * bh * sk
-        record(total, f"K2 {name:30s} BH={bh} Sq={sq} Sk={sk} Dk={dk} Dv={dv}", dtype, err,
-               rel, times, flops, nbytes, per_mb)
+        measured[(bh, sq, sk, dk, dv)] = record(
+            f"K2 {name:30s} BH={bh} Sq={sq} Sk={sk} Dk={dk} Dv={dv}", dtype, err, rel, times,
+            flops, nbytes)
         with torch.no_grad():
             line = device_line("K2 attention backward", kernel,
                                lambda timer: _sdpa_bwd_ms(q, k, v, mask, g, timer))
         print(line + "; bitwise equal over two runs")
         del q, k, v, g, bias, mask
-    return total
+    return forward_total(measured, [(c[1:6], c[6]) for c in K2_CASES])
 
 
 def _library_bottleneck(x, p: kbottle.BlockWeights, d: int):
@@ -478,34 +525,38 @@ def k3_weights(gen, cin, p, ds):
 
 
 def check_k3(gen, dtype):
-    """K3 against bottleneck_plain at the five stages; bf16 takes the
-    tensor-core kernel (timed over 10 calls), fp32 the CUDA-core one (2)."""
-    total = new_total()
+    """K3 against bottleneck_plain at each stride-1 block shape of the
+    served forward, R101's and DC5's (layer4 at 28 x 38, dilation 1 and 2),
+    each shape once; bf16 takes the tensor-core kernel (timed over 10
+    calls), fp32 the CUDA-core one (2). Returns the two forwards' totals."""
+    measured = {}
     reps = 10 if dtype == torch.bfloat16 else 2
     isz = torch.finfo(dtype).bits // 8
-    for name, h, w, cin, p, ds, per_fwd in K3_CASES:
-        cout = 4 * p
-        bw = k3_weights(gen, cin, p, ds)
-        x = randn(gen, N, h, w, cin, dtype=dtype)
-        out = kbottle.fused_bottleneck(x, bw, 1)
-        ref = kbottle.bottleneck_plain(x, bw, 1)
+    for b, _ in K3_CASES + K3_DC5_CASES:
+        shape = b._replace(name="")
+        if shape in measured:
+            continue
+        d = b.dilation
+        bw = k3_weights(gen, b.cin, b.p, b.proj)
+        x = randn(gen, N, b.h, b.w, b.cin, dtype=dtype)
+        out = kbottle.fused_bottleneck(x, bw, d)
+        ref = kbottle.bottleneck_plain(x, bw, d)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         del out, ref
-        times = (time_ms(lambda: kbottle.fused_bottleneck(x, bw, 1), reps),
-                 time_ms(lambda: kbottle.bottleneck_plain(x, bw, 1), 2),
-                 time_ms(lambda: _library_bottleneck(x, bw, 1), reps))
-        macs = cin * p + 9 * p * p + p * cout + (cin * cout if ds else 0)
-        flops = 2.0 * N * h * w * macs
-        nbytes = isz * (N * h * w * (cin + cout) + macs) + 4 * (2 * p + cout * (2 if ds else 1))
-        record(total, f"K3 {name:14s} N={N} {h}x{w} Cin={cin} P={p} proj={ds}", dtype, err, rel,
-               times, flops, nbytes, per_fwd)
-        ch, cw, stages = kbottle.pick_tile(h, w, cin, p, cout, 1, isz, ds)
-        smem = kbottle._smem_bytes(ch, cw, p, 1, isz, cout, ds, stages)
+        times = (time_ms(lambda: kbottle.fused_bottleneck(x, bw, d), reps),
+                 time_ms(lambda: kbottle.bottleneck_plain(x, bw, d), 2),
+                 time_ms(lambda: _library_bottleneck(x, bw, d), reps))
+        flops, nbytes = k3_call_work(N, b, isz)
+        measured[shape] = record(f"K3 {b.name:8s} N={N} {b.h}x{b.w} Cin={b.cin} P={b.p} "
+                                 f"proj={b.proj} d={d}", dtype, err, rel, times, flops, nbytes)
+        ch, cw, stages = kbottle.pick_tile(b.h, b.w, b.cin, b.p, b.cout, d, isz, b.proj)
+        smem = kbottle._smem_bytes(ch, cw, b.p, d, isz, b.cout, b.proj, stages)
         print(f"    tile {ch}x{cw}" + (f", ring of {stages} slices" if stages else "")
               + f", {smem} B shared memory")
         del x, bw
-    return total
+    return tuple(forward_total(measured, [(b._replace(name=""), n) for b, n in cases])
+                 for cases in (K3_CASES, K3_DC5_CASES))
 
 
 def check_recompute_tf32(gen):
@@ -517,7 +568,8 @@ def check_recompute_tf32(gen):
     saved = cudnn.deterministic, cudnn.allow_tf32
     cudnn.deterministic = True
     try:
-        for name, h, w, cin, p, ds, _ in K3_CASES:
+        for b, _ in K3_CASES:
+            name, h, w, cin, p, ds = b.name, b.h, b.w, b.cin, b.p, b.proj
             bw = kbottle.BlockWeights(*(None if t is None else t.requires_grad_()
                                         for t in k3_weights(gen, cin, p, ds)))
             x = randn(gen, 2, h, w, cin, dtype=torch.bfloat16).requires_grad_()
@@ -630,14 +682,54 @@ def serve_phase():
         with plain_kernels():
             out_p = eval_forward(cfg, pred.model, placed)
         torch.cuda.synchronize()
+    compare_served(out_k, out_p, "served forward")
+    del pred, placed, out_k, out_p
+    torch.cuda.empty_cache()
+    return launches, serve_dc5(requests[:2])
+
+
+def compare_served(out_k, out_p, label: str) -> None:
     for key, tol in SERVE_TOL.items():
         err, rel = rel_err(out_k[key], out_p[key])
         val = err if key == "pred_boxes" else rel
         kind = "abs" if key == "pred_boxes" else "rel"
-        print(f"  served forward kernels vs plain: {key} max_abs_err={err:.3e} rel={rel:.3e} "
+        print(f"  {label} kernels vs plain: {key} max_abs_err={err:.3e} rel={rel:.3e} "
               f"({kind} tol {tol})")
         if not val <= tol:
-            raise AssertionError(f"{key}: kernel forward differs from plain by {val:.3e} > {tol}")
+            raise AssertionError(f"{label} {key}: kernel forward differs from plain by "
+                                 f"{val:.3e} > {tol}")
+
+
+def serve_dc5(requests):
+    """The recipe with DC5 (MODEL.VISION_BACKBONE.DILATION) serves two
+    128-frame requests in one predict_batch: one forward, K3 once per
+    stride-1 block (31, two at dilation 2), K1 24 times on the 28 x 38
+    grid; then the batch again with the kernels and with their plain
+    versions, compared."""
+    cfg = recipe_cfg("MODEL.VISION_BACKBONE.DILATION", "True")
+    pred = GroundingPredictor(cfg, max_batch=2, device="cuda", seed=0)
+    batch = [(frames, text, None) for frames, text in requests]
+    pred.predict_batch(batch)  # folds and packs the weights
+    before = _counts(), kbottle.DILATED.count
+    results = pred.predict_batch(batch)
+    torch.cuda.synchronize()
+    launches = {k: v - before[0][k] for k, v in _counts().items()}
+    dilated = kbottle.DILATED.count - before[1]
+    print(f"  DC5: one served forward of {len(results)} requests launched {launches}, "
+          f"{dilated} of K3's at dilation 2")
+    want = {"flash_attention": K1_PER_MICROBATCH, "flash_attention_bwd": 0,
+            "fused_bottleneck": K3_PER_DC5_FORWARD}
+    if launches != want or dilated != K3_DILATED_PER_DC5_FORWARD:
+        raise AssertionError(f"DC5 forward launched {launches} ({dilated} dilated), want {want} "
+                             f"({K3_DILATED_PER_DC5_FORWARD} dilated)")
+    raw, _, _ = pred.prepare(batch)
+    with torch.inference_mode():
+        placed = to_device(raw, pred.device)
+        out_k = eval_forward(cfg, pred.model, placed)
+        with plain_kernels():
+            out_p = eval_forward(cfg, pred.model, placed)
+        torch.cuda.synchronize()
+    compare_served(out_k, out_p, "served DC5 forward")
     return launches
 
 
@@ -2382,26 +2474,25 @@ def main() -> int:
     print("kernels vs plain versions at the main path's shapes:")
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    totals = {}
+    totals, dc5_totals = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         with torch.inference_mode():
-            found = {"flash_attention": check_k1(gen, dtype),
-                     "fused_bottleneck": check_k3(gen, dtype)}
-        found["flash_attention_bwd"] = check_k2(gen, dtype)
+            (k1, k1_dc5), (k3, k3_dc5) = check_k1(gen, dtype), check_k3(gen, dtype)
+        found = {"flash_attention": k1, "fused_bottleneck": k3,
+                 "flash_attention_bwd": check_k2(gen, dtype)}
+        dc5 = {"flash_attention": k1_dc5, "fused_bottleneck": k3_dc5}
         if dtype == torch.bfloat16:
             check_recompute_tf32(gen)
-        for name, tot in found.items():
-            if dtype == torch.bfloat16:
-                totals[name] = tot
-            else:
-                totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"],
-                                                  tot["max_abs_err"])
+            totals, dc5_totals = found, dc5
+        for name, tot in found.items():  # the largest error over both forwards and dtypes
+            totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], tot["max_abs_err"],
+                                              dc5.get(name, tot)["max_abs_err"])
     torch.cuda.empty_cache()
     print(f"kernel phase took {time.time() - t0:.1f} s")
 
     print("serving at full width:")
     t0 = time.time()
-    served = serve_phase()
+    served, served_dc5 = serve_phase()
     torch.cuda.empty_cache()
     print(f"serving phase took {time.time() - t0:.1f} s")
 
@@ -2476,7 +2567,8 @@ def main() -> int:
     for name, (route, source, replaces, basis) in meta.items():
         t = totals[name]
         per_rank = {layout: [r[name] for r in ranks] for layout, ranks in dist.items()}
-        by_path = {"serving": served[name], "training": trained[name], "loop": looped[name],
+        by_path = {"serving": served[name], "serving_dc5": served_dc5[name],
+                   "training": trained[name], "loop": looped[name],
                    "cli": clis[name], "lstm": lstm[name], "inputs": inputs[name],
                    "distributed": sum(sum(v) for v in per_rank.values()),
                    "learning": learned[name], "full_scale": full[name]}
@@ -2490,6 +2582,12 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "basis": basis + "; max_abs_err over every shape in bf16 and fp32",
         })
+        if name in dc5_totals:  # the same over a DC5 forward (MODEL.VISION_BACKBONE.DILATION)
+            t = dc5_totals[name]
+            kernels[-1]["dc5"] = {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                          "library_ms")}
+            kernels[-1]["dc5"]["launches_per_forward"] = sum(
+                n for *_, n in (K1_DC5_CASES if name == "flash_attention" else K3_DC5_CASES))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,9 +22,11 @@ on. ``record`` adds a span whose times the caller already holds.
 ``Counter(name)`` counts whether the recorder is on or off; every counter is
 registered by its name and ``drain()`` reports its value (counters are not
 reset by a drain): the kernels' launch counters ``k1.launches``,
-``k2.launches`` and ``k3.launches``, and ``k3.folds``, the forwards that
-rebuilt the backbone's folded weights. ``drain()`` returns and clears the
-spans (``drain(keep=True)`` leaves them), with two clock anchors,
+``k2.launches`` and ``k3.launches``, ``k3.dilated`` (the K3 launches at
+dilation 2), ``k3.folds``, the forwards that rebuilt the backbone's folded
+weights, and ``serve.forwards``, the forwards ``predict_batch`` launched.
+``drain()`` returns and clears the spans (``drain(keep=True)`` leaves
+them), with two clock anchors,
 ``(time.time_ns(), time.perf_counter_ns())``, one sampled at ``enable()``
 and one at the drain: they map the spans onto the profiler's wall clock
 (``to_wall``, ``chrome_events``), and their offsets differ by the wall

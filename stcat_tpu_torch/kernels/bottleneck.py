@@ -10,7 +10,8 @@ or 2; returns [N, H, W, Cout] in x's dtype. It is a
 launches the kernel on CUDA tensors (or raises) and runs ``bottleneck_plain``
 on CPU tensors. On the card bf16 takes the tensor-core kernel
 (``bottleneck_tc``) and fp32 the CUDA-core one (``bottleneck_fwd``); both
-count in ``LAUNCHES``. The backward, like the JAX package's ``_vjp_bwd``,
+count in ``LAUNCHES`` (``k3.launches``), those at dilation 2 in ``DILATED``
+too (``k3.dilated``). The backward, like the JAX package's ``_vjp_bwd``,
 re-runs ``bottleneck_plain`` under autograd on the saved x and weights and
 takes its gradients (the TPU kernel has no backward kernel either), with
 cuDNN's TF32 off whatever the caller set. Only x and the folded weights are
@@ -40,6 +41,8 @@ from . import _build
 # shared memory one thread block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 LAUNCHES = trace.Counter("k3.launches")
+# the launches at dilation 2 (DC5's layer4 after its first block), among LAUNCHES
+DILATED = trace.Counter("k3.dilated")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -257,6 +260,8 @@ def _launch(x: torch.Tensor, p: Packed, dilation: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {err}")
     LAUNCHES.add()
+    if dilation == 2:
+        DILATED.add()
     return out
 
 

@@ -6,6 +6,12 @@ are NCHW tensors in ``torch.channels_last`` memory, i.e. NHWC in memory like
 the JAX package, so the fused-bottleneck kernel takes them as NHWC views
 without a copy.
 
+DC5 (``dc5``, MODEL.VISION_BACKBONE.DILATION) builds layer4 as torchvision's
+``replace_stride_with_dilation=[False, False, True]`` does, as DETR and
+STCAT take it: stride 1 throughout, layer4.0's 3x3 at dilation 1 beside a
+stride-1 projection, the later 3x3s at dilation and padding 2. The body's
+stride is then 16, not 32, and every layer4 block is a stride-1 block.
+
 FrozenBN keeps torchvision's four buffers and applies
 scale = weight * rsqrt(running_var + 1e-5), bias = bias - running_mean * scale
 in x's dtype. With gradients on, stride-1 FrozenBN blocks of the stages in
@@ -267,13 +273,18 @@ class ResNet(_Folds, nn.Module):
             impl = conv_impl if (i + 1) in conv_stages else "xla"
             blocks = []
             for j in range(depth):
+                # torchvision's replace_stride_with_dilation: a stage's first
+                # block keeps the dilation before it (1), its projection at
+                # stride 1; the later blocks take the stage's dilation
                 blocks.append(Bottleneck(
-                    cin, p, stride=s if j == 0 else 1, dilation=d, downsample=(j == 0),
-                    dtype=dtype, conv_impl=impl, norm=norm,
+                    cin, p, stride=s if j == 0 else 1, dilation=1 if j == 0 else d,
+                    downsample=(j == 0), dtype=dtype, conv_impl=impl, norm=norm,
                 ))
                 cin = p * 4
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(depths)
+        # the stem, the max pool and each stage's strided 3x3 halve the map, rounding up
+        self.stride = 4 * 2 ** strides[:self.num_stages].count(2)
 
     def _stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
         remat = (self.remat_blocks and (i + 1) in self.remat_stages
@@ -302,7 +313,8 @@ class ResNet(_Folds, nn.Module):
         return torch.relu(self.bn1(_conv(x, self.conv1, self.dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, H, W, 3] -> [N, H/32, W/32, 2048] (NHWC, compute dtype)."""
+        """x [N, H, W, 3] -> [N, h, w, 2048] (NHWC, compute dtype): h, w
+        are H, W over ``stride`` (32, or 16 with DC5), rounded up."""
         frozen = min(self.frozen_stages, self.num_stages)
         folding = frozen if torch.is_grad_enabled() else self.num_stages
         with torch.no_grad():  # the frozen prefix

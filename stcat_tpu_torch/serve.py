@@ -23,9 +23,13 @@ start of its ``serve.dispatch``. ``predict_batch`` records ``serve.batch``
 (``attrs`` ``real`` and ``lanes``: the requests and the padded lanes), a
 child of ``serve.dispatch`` under a MicroBatcher, holding ``serve.prepare``
 (host prep), ``serve.h2d`` (the copies to the device), ``serve.forward``
-(the forward's host enqueue), ``serve.postprocess``, ``serve.readback``
+(the forward's host enqueue; ``attrs`` ``rows``, the lanes x streams x bucket
+frames it runs, ``canvas``, their [H, W], and ``backbone_hw``, the
+backbone's output [h, w]), ``serve.postprocess``, ``serve.readback``
 (the one wait for the card) and ``serve.merge`` (the stream merge and the
-result dicts). ``cli/serve.py --trace`` serves them at ``GET /trace``.
+result dicts). ``cli/serve.py --trace`` serves them at ``GET /trace``. The
+counter ``serve.forwards`` counts the forwards ``predict_batch`` launches,
+one per group of at most max_batch requests, recorder on or off.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from .train.step import make_eval_forward
 
 
 DISPATCHER = "stcat-microbatcher"
+FORWARDS = trace.Counter("serve.forwards")
 
 
 def eval_forward(cfg, model, raw: RawVideoBatch) -> Dict[str, torch.Tensor]:
@@ -125,8 +130,10 @@ class GroundingPredictor:
                 with trace.span("serve.h2d"):
                     placed = to_device(raw, self.device)
                     sizes = to_device(orig_sizes(m1 + m2), self.device)
-                with trace.span("serve.forward"):
+                attrs = self._forward_attrs(raw) if trace.enabled() else {}
+                with trace.span("serve.forward", **attrs):
                     out = eval_forward(self.cfg, self.model, placed)
+                FORWARDS.add()
                 with trace.span("serve.postprocess"):
                     boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"], sizes,
                                                       placed.frame_valid)
@@ -140,6 +147,15 @@ class GroundingPredictor:
                      "span": temp_pred[i]["sted"]}
                     for i in range(len(requests))
                 ]
+
+    def _forward_attrs(self, raw: RawVideoBatch) -> Dict:
+        """``serve.forward``'s attrs: the frames the forward runs, their
+        canvas and the backbone's output size on it."""
+        h, w = (int(n) for n in raw.out_canvas)
+        rows = raw.frame_valid.shape[0] * raw.frame_valid.shape[1]
+        stride = self.model.vis_encoder[0].body.stride
+        return {"rows": int(rows), "canvas": [h, w],
+                "backbone_hw": [-(-h // stride), -(-w // stride)]}
 
     def prepare(self, requests) -> Tuple[RawVideoBatch, List[Dict], List[Dict]]:
         """Host side of predict_batch for at most max_batch requests: the

@@ -61,6 +61,22 @@ class _Bottleneck(nn.Module):
         return self.relu(out + identity)
 
 
+class FrozenBN(nn.Module):
+    """torchvision.ops.FrozenBatchNorm2d (eps 1e-5), written out: the norm
+    layer a frozen body is built with."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        for name, value in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
+                            ("running_var", 1.0)):
+            self.register_buffer(name, torch.full((n,), value))
+
+    def forward(self, x):
+        scale = self.weight * (self.running_var + 1e-5).rsqrt()
+        shift = self.bias - self.running_mean * scale
+        return x * scale[None, :, None, None] + shift[None, :, None, None]
+
+
 class _ResNet(nn.Module):
     def __init__(self, layers, norm_layer, replace_stride_with_dilation):
         super().__init__()

@@ -155,6 +155,52 @@ def test_fused_bottleneck_kernel_matches_plain_at_main_path_stages(dev, dtype, t
     assert _rel_err(out, ref) <= tol
 
 
+# R101-DC5's layer4 at 448x608 (28 x 38): layer4.0, a projection at dilation
+# 1, and layer4.1 (and .2) at dilation 2
+DC5_LAYER4 = [  # h, w, cin, p, projection, dilation
+    (28, 38, 1024, 512, True, 1),
+    (28, 38, 2048, 512, False, 2),
+]
+
+
+@pytest.mark.parametrize("h,w,cin,p,ds,dil", DC5_LAYER4, ids=["layer4.0", "layer4.1"])
+def test_fused_bottleneck_kernel_matches_plain_at_dc5_layer4(dev, h, w, cin, p, ds, dil):
+    """bf16, two frames, packed weights as the folded backbone hands them
+    over: K3 against bottleneck_plain; one launch, counted in k3.dilated at
+    dilation 2 only."""
+    rng = np.random.RandomState(6)
+    bw = _block(dev, rng, cin, p, ds)
+    x = torch.from_numpy(rng.randn(2, h, w, cin).astype(np.float32)).to(dev, torch.bfloat16)
+    launches, dilated = pkb.LAUNCHES.count, pkb.DILATED.count
+    with torch.no_grad():
+        out = pkb.fused_bottleneck(x, pkb.pack(bw, torch.bfloat16), dil)
+    assert pkb.LAUNCHES.count == launches + 1
+    assert pkb.DILATED.count == dilated + (dil == 2)
+    ref = pkb.bottleneck_plain(x, bw, dil)
+    torch.cuda.synchronize()
+    assert out.shape == (2, h, w, 4 * p) and out.dtype == torch.bfloat16
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("dc5,launches,dilated", [(False, 30, 0), (True, 31, 2)],
+                         ids=["r101", "dc5"])
+def test_a_bf16_body_forward_counts_its_k3_launches(dev, dc5, launches, dilated):
+    """An R101 body's bf16 forward without gradient launches K3 once per
+    stride-1 block: 30, none dilated; with DC5 layer4.0 joins them (31) and
+    layer4.1-2 are the two at dilation 2."""
+    from stcat_tpu_torch.models.resnet import build_resnet
+
+    torch.manual_seed(0)
+    body = build_resnet("resnet101", dc5, dtype=torch.bfloat16).to(dev).eval()
+    x = torch.randn(2, 224, 320, 3, device=dev)
+    before = pkb.LAUNCHES.count, pkb.DILATED.count
+    with torch.inference_mode():
+        out = body(x)
+    torch.cuda.synchronize()
+    assert (pkb.LAUNCHES.count - before[0], pkb.DILATED.count - before[1]) == (launches, dilated)
+    assert tuple(out.shape) == (2, 224 // body.stride, 320 // body.stride, 2048)
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
 def test_fused_bottleneck_kernel_ragged_tiles(dev, dtype, tol):
     """A frame whose tiles end ragged in both directions and whose pixel

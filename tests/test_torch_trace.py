@@ -270,6 +270,62 @@ def test_predict_batch_alone_records_a_batch_without_parent(predictor):
     assert sorted(s["name"] for s in spans if s["parent"] == batch["id"]) == sorted(BATCH_CHILDREN)
 
 
+def test_serve_forwards_counts_one_per_forward_including_a_split_group(predictor):
+    """``serve.forwards``: three requests through predict_batch at max_batch
+    2 are two forwards; a group of 2 and a group of 1 through MicroBatcher
+    two more; the recorder off or on."""
+    def forwards():
+        return trace.drain(keep=True)["counters"]["serve.forwards"]
+
+    start = forwards()
+    assert start == serve.FORWARDS.count
+    predictor.predict_batch([(_clip(seed=k), f"a person {k}", None) for k in range(3)])
+    assert forwards() == start + 2
+    trace.enable()
+    with MicroBatcher(predictor, max_wait_ms=500) as mb:
+        for f in [mb.submit(_clip(seed=k), f"a person {k}") for k in range(2)]:
+            f.result(timeout=120)
+        mb.submit(_clip(seed=2), "a person alone").result(timeout=120)
+    assert forwards() == start + 4
+    assert len(by_name(trace.drain()["spans"], "serve.forward")) == 2
+
+
+def test_k3_dilated_is_registered_and_stays_zero_on_r101(predictor):
+    """``k3.dilated`` sits beside ``k3.launches`` in every drain; an R101
+    body (no DC5) launches no dilated block. On the card a DC5 body adds 2
+    (tests/test_torch_cuda.py)."""
+    counters = trace.drain()["counters"]
+    assert counters["k3.dilated"] == pkb.DILATED.count
+    predictor.predict(_clip(), "a person waves")
+    assert trace.drain()["counters"]["k3.dilated"] == counters["k3.dilated"]
+    body = predictor.model.vis_encoder[0].body
+    assert all(b.dilation == 1 for i in range(4) for b in getattr(body, f"layer{i + 1}"))
+
+
+@pytest.mark.parametrize("dc5", [False, True], ids=["r101", "dc5"])
+def test_serve_forward_carries_its_rows_canvas_and_backbone_size(dc5):
+    """``serve.forward``'s attrs: the rows (2 lanes x 2 streams x the
+    8-frame bucket), the canvas prepare built, and the backbone's output
+    [h, w] as the body's forward makes it (stride 32, or 16 with DC5)."""
+    cfg = tiny("MODEL.VISION_BACKBONE.DILATION", "true" if dc5 else "false")
+    pred = GroundingPredictor(cfg, state_dict=build_model(cfg, device="cpu", seed=0).state_dict(),
+                              max_batch=2, device="cpu")
+    body = pred.model.vis_encoder[0].body
+    seen = []
+    hook = body.register_forward_hook(lambda m, a, out: seen.append(list(out.shape[1:3])))
+    trace.enable()
+    try:
+        pred.predict(_clip(), "a person waves")
+    finally:
+        hook.remove()
+    (fwd,) = by_name(trace.drain()["spans"], "serve.forward")
+    raw, _, _ = pred.prepare([(_clip(), "a person waves", None)])
+    h, w = raw.out_canvas
+    assert fwd["attrs"] == {"rows": 2 * 2 * 8, "canvas": [h, w], "backbone_hw": seen[0]}
+    stride = 16 if dc5 else 32
+    assert seen[0] == [-(-h // stride), -(-w // stride)]
+
+
 # --------------------------------------------------------------------------
 # evaluation and training
 # --------------------------------------------------------------------------
