@@ -22,6 +22,28 @@ version): it then launches with no cast, zero fill or copy of its own.
 x may be a channels-last view of an NCHW tensor (``permute(0, 2, 3, 1)`` of
 a ``torch.channels_last`` tensor is contiguous), so the backbone hands its
 activations over without a copy.
+
+``bottleneck_tc`` is one launch per block call, warp-specialised (the design
+note in ``csrc/bottleneck.cu``): two consumer warpgroups (warps 0-7) run
+every GEMM on wgmma with both operands in shared memory, wait for each
+slice's group and hand its ring stage straight back on its empty mbarrier
+while the next slices' copies are in flight; a producer warpgroup (warps
+8-11) fills the ring, lane 0 of warp 8
+issuing each slice's packed weight tile as one bulk copy and warps 9-11
+putting its A tile (x rows by cp.async, the 3x3's shifted x1 windows by
+shared-memory copies), all completing on the stage's full mbarrier. Inside
+the K loop there is no block-wide barrier; the consumers meet on a barrier
+of their own twice per subtile, where y2 changes hands.
+The host side here chooses per shape what the kernel takes as parameters:
+the tile and the ring depth (``pick_tile``: least work with halo recompute
+and rows rounded up to BM counted, then the deepest ring within 10% of it),
+the warpgroups' split (along M, so that a weight slice serves 128 pixels,
+where P <= 256; along N at P = 512) and the wgmma width by each GEMM's N
+(``_layout``, which ``pack`` follows: ``_tile_n`` columns per packed B tile,
+BK = 32 deep). What bounds each regime: where P <= 256, the producers'
+handoff per 32-deep slice and the epilogues; at P = 512, the weight slices'
+traffic through L2 (4-6 TB/s), which a deeper ring or a better K loop does
+not remove.
 """
 
 from __future__ import annotations
@@ -82,19 +104,21 @@ def bottleneck_plain(x: torch.Tensor, p: BlockWeights, dilation: int = 1) -> tor
 
 
 # bf16 route (csrc/bottleneck.cu, namespace tc): ring slices of BK rows of
-# K; every A row in shared memory padded by APAD elements
-BK, APAD, ZERO_BYTES = 32, 8, 128
+# K, 3 to MAX_STAGES of them; every x1 pixel row in shared memory padded by
+# APAD elements; HEAD_BYTES of mbarriers before the ring
+BK, APAD, HEAD_BYTES, MAX_STAGES = 32, 8, 128, 6
+RINGS = tuple(range(MAX_STAGES, 2, -1))
 
 
-def _layout(n: int) -> Tuple[int, int]:
-    """(warpgroups along M, m64n64 tiles per warpgroup) of a GEMM phase
-    whose N is n wide."""
-    return (2 if n <= 128 else 1), (1 if n <= 64 else 2)
+def _layout(n: int, p: int) -> Tuple[int, int]:
+    """(warpgroups along M, m64n64 tiles per warpgroup) of a GEMM whose N is
+    n wide in a block of P = p: the warpgroups split M when p <= 256."""
+    return (2 if p <= 256 else 1), (1 if n <= 64 else 2)
 
 
-def _tile_n(n: int) -> int:
-    """Columns of B per GEMM tile of that phase."""
-    wgm, nt = _layout(n)
+def _tile_n(n: int, p: int) -> int:
+    """Columns of B per GEMM tile of that GEMM."""
+    wgm, nt = _layout(n, p)
     return 64 * nt * (2 // wgm)
 
 
@@ -119,15 +143,16 @@ def _smem_bytes(ch: int, cw: int, p: int, d: int, itemsize: int, cout: int, proj
         return 4 * (16 * 68 + 16 * 64) + ((ch + 2 * d) * (cw + 2 * d) + ch * cw) * p * 4
 
     def a_bytes(wgm):
-        return 64 * wgm * (BK + APAD) * 2
+        return 64 * wgm * BK * 2
 
     def b_bytes(wgm, nt):
         return BK * 64 * nt * (2 // wgm) * 2
 
-    (wp, tp), (wc, tc) = _layout(p), _layout(cout)
+    (wp, tp), (wc, tc) = _layout(p, p), _layout(cout, p)
     stage = max(a_bytes(wp) + b_bytes(wp, tp), b_bytes(wc, tc) + (a_bytes(wc) if proj else 0))
-    row = (p + APAD) * 2
-    return ZERO_BYTES + stages * stage + ((ch + 2 * d) * (cw + 2 * d) + 64 * wp) * row
+    x1 = (ch + 2 * d) * (cw + 2 * d) * (p + APAD) * 2
+    y2 = 64 * wp * -(-p // BK) * BK * 2
+    return HEAD_BYTES + stages * stage + x1 + y2
 
 
 def _bands(n: int, c: int) -> List[Tuple[int, int]]:
@@ -139,9 +164,9 @@ def _best_tile(h, w, cin, p, cout, d, itemsize, proj, stages):
     """(work, (rows, cols)) of the tile that fits shared memory with the least
     GEMM work over the frame, then the largest; None if none fits. Work
     counts x1's halo recompute and, on the bf16 route, rows rounded up to
-    the 64 rows of a warpgroup's wgmma (phase 1 over the haloed tile,
-    phases 2-3 over the tile)."""
-    g = 64 if itemsize == 2 else 1
+    the GEMMs' BM (64 rows per warpgroup along M: phase 1 over the haloed
+    tile, phases 2-3 over the tile)."""
+    g = 64 * _layout(p, p)[0] if itemsize == 2 else 1
     k1, k23 = cin * p, 9 * p * p + p * cout + (cin * cout if proj else 0)
     best = None
     for ch in range(1, h + 1):
@@ -161,14 +186,15 @@ def _best_tile(h, w, cin, p, cout, d, itemsize, proj, stages):
 def pick_tile(h: int, w: int, cin: int, p: int, cout: int, d: int, itemsize: int,
               proj: bool) -> Tuple[int, int, int]:
     """(rows, cols) of the output tile per thread block and the depth of the
-    bf16 route's weight ring (0 on the fp32 route). A 4-slice ring keeps
-    more weight bytes in flight than a 3-slice one but leaves less shared
-    memory for x1; it is taken unless its best tile does over 10% more work."""
+    bf16 route's ring (0 on the fp32 route). A deeper ring lets the producers
+    keep more slices in flight but leaves less shared memory for x1:
+    the deepest of ``RINGS`` is taken whose best tile does at most 10% more
+    work than the least over all of them."""
     if itemsize == 2 and (cin % 8 or p % 8 or cout % 8):
         # the tensor-core route copies channels in 16-byte chunks (8 bf16)
         raise ValueError(f"fused_bottleneck: bf16 needs Cin, P and Cout multiples of 8, "
                          f"got {cin}, {p}, {cout}")
-    rings = (4, 3) if itemsize == 2 else (0,)
+    rings = RINGS if itemsize == 2 else (0,)
     found = {st: best for st in rings
              if (best := _best_tile(h, w, cin, p, cout, d, itemsize, proj, st)) is not None}
     if not found:
@@ -230,7 +256,7 @@ def pack(p: BlockWeights, dtype: torch.dtype) -> Packed:
         return Packed(w, ())
     planes, cout = w.w1.shape[1], w.w3.shape[1]
     if dtype == torch.bfloat16:
-        bn_p, bn_c = _tile_n(planes), _tile_n(cout)
+        bn_p, bn_c = _tile_n(planes, planes), _tile_n(cout, planes)
         w1 = _pack_b(w.w1.t()[:, None], bn_p)
         w2 = _pack_b(w.w2.permute(3, 0, 1, 2).reshape(planes, 9, planes), bn_p)
         w3 = _pack_b(w.w3.t()[:, None], bn_c)

@@ -202,19 +202,44 @@ def test_a_bf16_body_forward_counts_its_k3_launches(dev, dc5, launches, dilated)
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-def test_fused_bottleneck_kernel_ragged_tiles(dev, dtype, tol):
+def test_fused_bottleneck_kernel_ragged_tiles(dev, dtype, tol, monkeypatch):
     """A frame whose tiles end ragged in both directions and whose pixel
-    count per tile is no multiple of 64 (a partial warpgroup tile), dilation 2."""
+    count per tile is no multiple of 64 (a partial warpgroup tile), dilation 2.
+    pick_tile takes the whole height of this frame, so the plan is given:
+    12 x 10 tiles on a 4-slice ring (bf16), which fit shared memory."""
     rng = np.random.RandomState(6)
     h, w, cin, p = 31, 57, 256, 64
     bw = _block(dev, rng, cin, p, False)
-    ch, cw, _ = pkb.pick_tile(h, w, cin, p, 4 * p, 2, torch.finfo(dtype).bits // 8, False)
+    itemsize = torch.finfo(dtype).bits // 8
+    ch, cw, stages = 12, 10, (4 if itemsize == 2 else 0)
     assert h % ch and w % cw and (ch * cw) % 64
+    assert pkb._smem_bytes(ch, cw, p, 2, itemsize, 4 * p, False, stages) <= pkb.SMEM_LIMIT
+    monkeypatch.setattr(pkb, "pick_tile", lambda *args: (ch, cw, stages))
     x = torch.from_numpy(rng.randn(3, h, w, cin).astype(np.float32)).to(dev, dtype)
     out = pkb.fused_bottleneck(x, bw, 2)
     ref = pkb.bottleneck_plain(x, bw, 2)
     torch.cuda.synchronize()
     assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("stages", pkb.RINGS)
+def test_fused_bottleneck_kernel_wraps_the_ring_many_times(dev, stages, monkeypatch):
+    """bf16 layer4 (P = 512: the 3x3's K = 9 x 512 is 144 slices) on every
+    ring depth the kernel takes, each with its best tile: the producers and
+    the consumers go round the ring dozens of times per GEMM, and the result
+    matches bottleneck_plain."""
+    rng = np.random.RandomState(7)
+    h, w, cin, p = 14, 19, 2048, 512
+    bw = _block(dev, rng, cin, p, False)
+    _, (ch, cw) = pkb._best_tile(h, w, cin, p, 4 * p, 1, 2, False, stages)
+    assert 9 * p // pkb.BK >= 20 * stages
+    monkeypatch.setattr(pkb, "pick_tile", lambda *args: (ch, cw, stages))
+    x = torch.from_numpy(rng.randn(1, h, w, cin).astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        out = pkb.fused_bottleneck(x, pkb.pack(bw, torch.bfloat16), 1)
+    ref = pkb.bottleneck_plain(x, bw, 1)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 2e-2
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -226,7 +251,8 @@ def test_bottleneck_smem_bytes_matches_the_kernel(dev, itemsize, h, w, cin, p, d
     fn = _build.load("bottleneck").bottleneck_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_longlong
     ch, cw, stages = pkb.pick_tile(h, w, cin, p, 4 * p, 1, itemsize, ds)
-    for tile, st in (((ch, cw), stages), ((1, 1), 3), ((ch, 1), 4)):
+    rings = pkb.RINGS if itemsize == 2 else (0,)
+    for tile, st in [((ch, cw), stages)] + [(t, r) for t in ((1, 1), (ch, 1)) for r in rings]:
         assert fn(*tile, p, 1, itemsize, 4 * p, int(ds), st) == \
             pkb._smem_bytes(*tile, p, 1, itemsize, 4 * p, ds, st)
 

@@ -376,8 +376,9 @@ DC5_LAYER4 = (28, 38, 2048, 512, 2, False)
 
 def _tile_work(h, w, cin, p, d, proj, ch, cw, itemsize):
     """GEMM work of a tile plan, tile by tile: x1 over each haloed tile and
-    phases 2-3 over each tile, rows rounded up to 64 on the bf16 route."""
-    g = 64 if itemsize == 2 else 1
+    phases 2-3 over each tile, rows rounded up to the GEMMs' BM on the bf16
+    route: 128 where P <= 256 (the two warpgroups split M), else 64."""
+    g = (128 if p <= 256 else 64) if itemsize == 2 else 1
     ru = lambda m: -(-m // g) * g
     total = 0
     for r0 in range(0, h, ch):
@@ -393,25 +394,27 @@ def _tile_work(h, w, cin, p, d, proj, ch, cw, itemsize):
 @pytest.mark.parametrize("h,w,cin,p,d,proj", MAIN_STAGES + [DC5_LAYER4])
 def test_bottleneck_tile_fits_shared_memory(h, w, cin, p, d, proj, itemsize):
     """The picked tile and ring fit 227 KB; no tile that fits the same ring
-    does less work; the ring is the 4-slice one unless that costs over 10%
-    more work (bf16), and the fp32 route has none."""
+    does less work; the ring is the deepest of RINGS whose best tile does at
+    most 10% more work than the least over all of them (bf16), and the fp32
+    route has none."""
     cout = 4 * p
+    rings = pkb.RINGS if itemsize == 2 else (0,)
     ch, cw, stages = pkb.pick_tile(h, w, cin, p, cout, d, itemsize, proj)
     assert 1 <= ch <= h and 1 <= cw <= w
-    assert stages in ((3, 4) if itemsize == 2 else (0,))
+    assert stages in rings
     assert pkb._smem_bytes(ch, cw, p, d, itemsize, cout, proj, stages) <= pkb.SMEM_LIMIT
     if h * w > 3000:  # the brute force below is for the smaller frames
         return
     work = _tile_work(h, w, cin, p, d, proj, ch, cw, itemsize)
     least = {}
-    for st in ((3, 4) if itemsize == 2 else (0,)):
+    for st in rings:
         fits = [(c2, w2) for c2 in range(1, h + 1) for w2 in range(1, w + 1)
                 if pkb._smem_bytes(c2, w2, p, d, itemsize, cout, proj, st) <= pkb.SMEM_LIMIT]
-        least[st] = min(_tile_work(h, w, cin, p, d, proj, c2, w2, itemsize) for c2, w2 in fits)
+        if fits:
+            least[st] = min(_tile_work(h, w, cin, p, d, proj, c2, w2, itemsize) for c2, w2 in fits)
     assert work == least[stages]
     assert work <= 1.1 * min(least.values())
-    if itemsize == 2 and stages == 3:
-        assert least[4] > 1.1 * least[3]
+    assert all(least[st] > 1.1 * min(least.values()) for st in least if st > stages)
 
 
 @pytest.mark.parametrize("h,w,cin,p,d,proj", MAIN_STAGES + [DC5_LAYER4, (31, 57, 256, 64, 2, False)])
@@ -444,14 +447,21 @@ def test_bottleneck_tile_refuses_what_cannot_fit(cin, p, cout, itemsize):
         pkb.pick_tile(14, 19, cin, p, cout, 2, itemsize, False)
 
 
-@pytest.mark.parametrize("n,taps,kin", [(256, 9, 256), (8, 9, 8), (64, 1, 16), (512, 1, 2048),
-                                        (72, 3, 40)])
-def test_bottleneck_pack_b_lays_out_the_kernels_tiles(n, taps, kin):
+@pytest.mark.parametrize("n,taps,kin,p,bn", [
+    (256, 9, 256, 256, 128), (8, 9, 8, 8, 64), (64, 1, 16, 64, 64), (512, 1, 2048, 512, 256),
+    (72, 3, 40, 72, 128),
+    (1024, 1, 256, 256, 128),   # layer3's w3: the warpgroups split M, so 128 columns per tile
+    (512, 9, 512, 512, 256),    # layer4's w2: they split N, 256 columns
+    (2048, 1, 1024, 512, 256),  # DC5 layer4.0's projection
+])
+def test_bottleneck_pack_b_lays_out_the_kernels_tiles(n, taps, kin, p, bn):
     """Weight (channel, tap, k) lands where bottleneck_tc reads it: tile
     (channel chunk, K slice) at (chunk * slices + slice) * BN * BK, inside
     it core matrix (channel / 8, k / 8) of 64 elements, row channel % 8;
-    padding is zero."""
-    bn, bk = pkb._tile_n(n), pkb.BK
+    padding is zero. BN follows the block's layout: 64 NT columns when the
+    two warpgroups split M (P <= 256), twice that when they split N."""
+    assert pkb._tile_n(n, p) == bn
+    bk = pkb.BK
     wt = torch.from_numpy(np.random.RandomState(0).randn(n, taps, kin).astype(np.float32))
     packed = pkb._pack_b(wt, bn).contiguous().flatten()
     cpt = -(-kin // bk)
