@@ -599,7 +599,8 @@ def plain_kernels(kernels=("K1", "K2", "K3")):
     if "K2" in kernels:
         kattn._launch_bwd = kattn.attention_bwd_plain
     if "K3" in kernels:
-        kbottle._launch = lambda x, p, dilation: kbottle.bottleneck_plain(x, p.weights, dilation)
+        kbottle._launch = lambda x, p, dilation: kbottle.bottleneck_plain(
+            x, kbottle.unpack(p), dilation)
     try:
         yield
     finally:

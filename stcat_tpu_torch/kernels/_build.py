@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for ``sm_90a`` into ``stcat_tpu_torch/_build/`` (listed in
 .gitignore), under a file name that carries a hash of the source and of every
 shared header ``csrc/*.cuh``, so an edited source or header is rebuilt and a
-stale library is never loaded. ``build_all``
+stale library is never loaded. ``load`` declares its entry points
+(``ENTRIES``: ``argtypes`` and ``restype``) once, as it loads it, so a
+launch calls the bound function as it is. ``build_all``
 starts one nvcc per source at once, for callers that want every kernel ready
 up front.
 
@@ -30,6 +32,16 @@ CSRC = _PKG / "csrc"
 NATIVE = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "bottleneck")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's C entry points: (argtypes, restype); pointers and the stream
+# as c_void_p, so that ctypes does not cut them to 32 bits
+ENTRIES = {
+    "flash_attention": {"flash_attention_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I)},
+    "flash_attention_bwd": {"flash_attention_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I)},
+    "bottleneck": {"bottleneck_fwd_launch": ([_P] * 10 + [_I] * 11 + [_P], _I),
+                   "bottleneck_smem_bytes": ([_I] * 8, ctypes.c_longlong)},
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -93,12 +105,19 @@ def build_all(names=SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it on first use."""
+    """The loaded library for ``csrc/<name>.cu``, building it and declaring
+    its entry points on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build_all((name,))
             lib = ctypes.CDLL(str(_lib_path(name)))
+            for entry, (args, res) in ENTRIES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = args, res
             _libs[name] = lib
         return lib
 

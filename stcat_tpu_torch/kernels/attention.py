@@ -29,7 +29,6 @@ whatever the route.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -127,17 +126,14 @@ def _check_grad(q, v, g) -> None:
 
 
 def _launch(q, k, v, bias) -> torch.Tensor:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     bh, sq, dk = q.shape
     sk, dv = v.shape[1], v.shape[2]
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     vec = vector_loads((q, k, v), (dk, dv), q.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             bh, sq, sk, dk, dv, _DTYPES[q.dtype], int(vec), stream)
+    err = _build.load("flash_attention").flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        bh, sq, sk, dk, dv, _DTYPES[q.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     LAUNCHES.add()
@@ -146,10 +142,6 @@ def _launch(q, k, v, bias) -> torch.Tensor:
 
 def _launch_bwd(q, k, v, bias, g):
     """K2: (dq, dk, dv, dbias) on the card."""
-    lib = _build.load("flash_attention_bwd")
-    fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     bh, sq, dk = q.shape
     sk, dv = v.shape[1], v.shape[2]
     dq, dkk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -159,9 +151,10 @@ def _launch_bwd(q, k, v, bias, g):
     stats = torch.empty((3, bh * sq), dtype=torch.float32, device=q.device)
     vec = vector_loads((q, k, v, g), (dk, dv), q.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
-             dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
-             bh, sq, sk, dk, dv, _DTYPES[q.dtype], int(vec), stream)
+    err = _build.load("flash_attention_bwd").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
+        bh, sq, sk, dk, dv, _DTYPES[q.dtype], int(vec), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES.add()

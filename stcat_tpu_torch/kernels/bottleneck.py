@@ -16,8 +16,10 @@ re-runs ``bottleneck_plain`` under autograd on the saved x and weights and
 takes its gradients (the TPU kernel has no backward kernel either), with
 cuDNN's TF32 off whatever the caller set. Only x and the folded weights are
 saved. A forward without gradient may instead hand over ``Packed`` weights,
-which ``pack`` casts and lays out once (the backbone keeps them per weight
-version): it then launches with no cast, zero fill or copy of its own.
+which ``pack`` validates, casts and lays out once (the backbone keeps them
+per weight version): it then checks only x and launches with no cast, zero
+fill or copy of its own. On the card a ``Packed`` block holds the kernel's
+operands and nothing else; ``unpack`` gives the plain weights back.
 
 x may be a channels-last view of an NCHW tensor (``permute(0, 2, 3, 1)`` of
 a ``torch.channels_last`` tensor is contiguous), so the backbone hands its
@@ -49,7 +51,6 @@ not remove.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 from collections import Counter
 from typing import List, NamedTuple, Optional, Tuple
@@ -136,6 +137,14 @@ def _pack_b(wt: torch.Tensor, bn: int) -> torch.Tensor:
     return w.permute(0, 3, 1, 4, 2, 5)
 
 
+def _unpack_b(packed: torch.Tensor, n: int, taps: int, kin: int, bn: int) -> torch.Tensor:
+    """The inverse of ``_pack_b``: B tiles -> K-major weights [n, taps, kin],
+    the zero padding dropped."""
+    cpt, n_pad = -(-kin // BK), -(-n // bn) * bn
+    w = packed.reshape(n_pad // bn, taps * cpt, bn // 8, BK // 8, 8, 8).permute(0, 2, 4, 1, 3, 5)
+    return w.reshape(n_pad, taps, cpt * BK)[:n, :, :kin]
+
+
 def _smem_bytes(ch: int, cw: int, p: int, d: int, itemsize: int, cout: int, proj: bool,
                 stages: int) -> int:
     """Host copy of ``bottleneck_smem_bytes`` in csrc/bottleneck.cu."""
@@ -208,17 +217,27 @@ def pick_tile(h: int, w: int, cin: int, p: int, cout: int, d: int, itemsize: int
     return (*found[st][1], st)
 
 
-def _check(x: torch.Tensor, p: BlockWeights, dilation: int) -> None:
-    if not x.is_cuda:
-        raise ValueError("fused_bottleneck: x must be a CUDA tensor")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"fused_bottleneck: x must be fp32 or bf16, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("fused_bottleneck: x must be a contiguous NHWC [N, H, W, Cin]")
-    if dilation not in (1, 2):
-        raise ValueError(f"fused_bottleneck: dilation 1 or 2, got {dilation}")
-    cin = x.shape[3]
-    planes, cout = p.w1.shape[1], p.w3.shape[1]
+class Packed(NamedTuple):
+    """A block's folded weights made ready once for one compute dtype and
+    device (``pack``): the kernel's operands in its argument order,
+    contiguous (bf16: packed B tiles), and the block's shape. On the CPU,
+    where the plain version runs, also ``weights`` in that dtype with fp32
+    biases; on the card the operands are the only copy (``unpack`` gives
+    the plain weights back)."""
+
+    operands: Tuple[Optional[torch.Tensor], ...]
+    cin: int
+    planes: int
+    cout: int
+    weights: Optional[BlockWeights]
+
+    @property
+    def proj(self) -> bool:
+        return self.operands[6] is not None
+
+
+def _check_weights(p: BlockWeights) -> None:
+    cin, planes, cout = p.w1.shape[0], p.w1.shape[1], p.w3.shape[1]
     shapes = {"w1": (cin, planes), "w2": (3, 3, planes, planes), "w3": (planes, cout),
               "b1": (1, 1, planes), "b2": (1, 1, planes), "b3": (1, 1, cout)}
     if p.wd is not None:
@@ -229,32 +248,17 @@ def _check(x: torch.Tensor, p: BlockWeights, dilation: int) -> None:
         t = getattr(p, name)
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_bottleneck: {name} is {tuple(t.shape)}, expected {shape}")
-        if t.device != x.device:
-            raise ValueError(f"fused_bottleneck: {name} is not on {x.device}")
-    if x.shape[0] > 65535:
-        raise ValueError("fused_bottleneck: at most 65535 frames per launch")
-    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
-        raise ValueError("fused_bottleneck: x must start on a 16-byte boundary")
-
-
-class Packed(NamedTuple):
-    """A block's folded weights made ready once for one compute dtype and
-    device (``pack``): ``weights`` in that dtype with fp32 biases (what the
-    plain version takes), and on the card the kernel's operands in its
-    argument order, contiguous (bf16: packed B tiles)."""
-
-    weights: BlockWeights
-    operands: Tuple[Optional[torch.Tensor], ...]
+        if t.device != p.w1.device:
+            raise ValueError(f"fused_bottleneck: {name} is not on {p.w1.device}")
 
 
 def pack(p: BlockWeights, dtype: torch.dtype) -> Packed:
-    """``p`` cast to ``dtype`` (biases fp32) and, on CUDA tensors, laid out
-    as the kernel reads it."""
+    """``p`` validated, cast to ``dtype`` (biases fp32) and laid out as the
+    kernel reads it."""
+    _check_weights(p)
     w = BlockWeights(*[None if t is None else t.to(dtype if i % 2 == 0 else torch.float32)
                        for i, t in enumerate(p)])
-    if not w.w1.is_cuda:
-        return Packed(w, ())
-    planes, cout = w.w1.shape[1], w.w3.shape[1]
+    cin, planes, cout = w.w1.shape[0], w.w1.shape[1], w.w3.shape[1]
     if dtype == torch.bfloat16:
         bn_p, bn_c = _tile_n(planes, planes), _tile_n(cout, planes)
         w1 = _pack_b(w.w1.t()[:, None], bn_p)
@@ -263,32 +267,71 @@ def pack(p: BlockWeights, dtype: torch.dtype) -> Packed:
         wd = None if w.wd is None else _pack_b(w.wd.t()[:, None], bn_c)
     else:
         w1, w2, w3, wd = w.w1, w.w2, w.w3, w.wd
-    return Packed(w, tuple(None if t is None else t.contiguous()
-                           for t in (w1, w.b1, w2, w.b2, w3, w.b3, wd, w.bd)))
+    operands = tuple(None if t is None else t.contiguous()
+                     for t in (w1, w.b1, w2, w.b2, w3, w.b3, wd, w.bd))
+    return Packed(operands, cin, planes, cout, None if w.w1.is_cuda else w)
+
+
+def unpack(p: Packed) -> BlockWeights:
+    """The plain weights of a ``Packed`` block, from its operands: the
+    inverse of ``pack``'s layout, padding dropped, in the packed dtype with
+    fp32 biases."""
+    w1, b1, w2, b2, w3, b3, wd, bd = p.operands
+    if w1.dtype == torch.bfloat16:
+        bn_p, bn_c = _tile_n(p.planes, p.planes), _tile_n(p.cout, p.planes)
+        w1 = _unpack_b(w1, p.planes, 1, p.cin, bn_p)[:, 0].t()
+        w2 = _unpack_b(w2, p.planes, 9, p.planes, bn_p).reshape(p.planes, 3, 3, p.planes)
+        w2 = w2.permute(1, 2, 3, 0)
+        w3 = _unpack_b(w3, p.cout, 1, p.planes, bn_c)[:, 0].t()
+        wd = None if wd is None else _unpack_b(wd, p.cout, 1, p.cin, bn_c)[:, 0].t()
+    return BlockWeights(w1, b1, w2, b2, w3, b3, wd, bd)
+
+
+def _check(x: torch.Tensor, p: Packed, dilation: int) -> None:
+    if not x.is_cuda:
+        raise ValueError("fused_bottleneck: x must be a CUDA tensor")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"fused_bottleneck: x must be fp32 or bf16, got {x.dtype}")
+    if x.dtype != p.operands[0].dtype:
+        raise ValueError(f"fused_bottleneck: x is {x.dtype}, the weights were packed for "
+                         f"{p.operands[0].dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("fused_bottleneck: x must be a contiguous NHWC [N, H, W, Cin]")
+    if x.shape[3] != p.cin:
+        raise ValueError(f"fused_bottleneck: x has {x.shape[3]} channels, the weights take {p.cin}")
+    if x.device != p.operands[0].device:
+        raise ValueError(f"fused_bottleneck: the weights are not on {x.device}")
+    if dilation not in (1, 2):
+        raise ValueError(f"fused_bottleneck: dilation 1 or 2, got {dilation}")
+    if x.shape[0] > 65535:
+        raise ValueError("fused_bottleneck: at most 65535 frames per launch")
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("fused_bottleneck: x must start on a 16-byte boundary")
 
 
 def _launch(x: torch.Tensor, p: Packed, dilation: int) -> torch.Tensor:
     n, h, w, cin = x.shape
-    planes, cout = p.weights.w1.shape[1], p.weights.w3.shape[1]
-    dt = x.dtype
-    ch, cw, stages = pick_tile(h, w, cin, planes, cout, dilation, x.element_size(),
-                               p.weights.wd is not None)
+    ch, cw, stages = pick_tile(h, w, cin, p.planes, p.cout, dilation, x.element_size(), p.proj)
     ptrs = [None if t is None else t.data_ptr() for t in p.operands]
-    out = torch.empty((n, h, w, cout), dtype=dt, device=x.device)
-
-    lib = _build.load("bottleneck")
-    fn = lib.bottleneck_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    out = torch.empty((n, h, w, p.cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), *ptrs, out.data_ptr(), n, h, w, cin, planes, cout,
-             dilation, ch, cw, stages, _DTYPES[dt], stream)
+    err = _build.load("bottleneck").bottleneck_fwd_launch(
+        x.data_ptr(), *ptrs, out.data_ptr(), n, h, w, cin, p.planes, p.cout, dilation, ch, cw,
+        stages, _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {err}")
     LAUNCHES.add()
     if dilation == 2:
         DILATED.add()
     return out
+
+
+def _forward(x: torch.Tensor, p: Packed, dilation: int) -> torch.Tensor:
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, p.weights, dilation)
+    _check(x, p, dilation)
+    return _launch(x, p, dilation)
 
 
 @contextlib.contextmanager
@@ -308,11 +351,7 @@ class _FusedBottleneck(torch.autograd.Function):
     def forward(ctx, x, dilation, *weights):
         ctx.dilation = dilation
         ctx.save_for_backward(x, *weights)
-        p = BlockWeights(*weights)
-        if x.device.type == "cpu":
-            return bottleneck_plain(x, p, dilation)
-        _check(x, p, dilation)
-        return _launch(x, pack(p, x.dtype), dilation)
+        return _forward(x, pack(BlockWeights(*weights), x.dtype), dilation)
 
     @staticmethod
     def backward(ctx, g):
@@ -339,7 +378,4 @@ def fused_bottleneck(x: torch.Tensor, p: BlockWeights | Packed, dilation: int = 
         return _FusedBottleneck.apply(x, dilation, *p)
     if torch.is_grad_enabled():
         raise ValueError("fused_bottleneck: Packed weights serve a forward without gradient")
-    if x.device.type == "cpu":
-        return bottleneck_plain(x, p.weights, dilation)
-    _check(x, p.weights, dilation)
-    return _launch(x, p, dilation)
+    return _forward(x, p, dilation)

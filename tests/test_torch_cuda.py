@@ -163,6 +163,31 @@ DC5_LAYER4 = [  # h, w, cin, p, projection, dilation
 ]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_weights_on_the_card_are_the_kernels_operands_only(dev, dtype):
+    """On the card pack keeps no cast copy of the weights: unpack gives them
+    back from the operands, bit for bit; a launch checks x against the shape
+    and dtype pack kept."""
+    rng = np.random.RandomState(8)
+    bw = _block(dev, rng, 64, 64, True)
+    packed = pkb.pack(bw, dtype)
+    assert packed.weights is None and all(t is None or t.is_cuda for t in packed.operands)
+    cpu = pkb.pack(pkb.BlockWeights(*[None if t is None else t.cpu() for t in bw]), dtype)
+    for name, got, want in zip(pkb.BlockWeights._fields, pkb.unpack(packed), cpu.weights):
+        assert (got is None) == (want is None), name
+        assert got is None or torch.equal(got.cpu(), want), name
+    x = torch.from_numpy(rng.randn(1, 6, 5, 64).astype(np.float32)).to(dev, dtype)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="the weights take 64"):
+            pkb.fused_bottleneck(x[..., :32].contiguous(), packed, 1)
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+        with pytest.raises(ValueError, match="packed for"):
+            pkb.fused_bottleneck(x.to(other), packed, 1)
+        out = pkb.fused_bottleneck(x, packed, 1)
+    torch.cuda.synchronize()
+    assert _rel_err(out, pkb.bottleneck_plain(x, bw, 1)) <= dict(TOLS)[dtype]
+
+
 @pytest.mark.parametrize("h,w,cin,p,ds,dil", DC5_LAYER4, ids=["layer4.0", "layer4.1"])
 def test_fused_bottleneck_kernel_matches_plain_at_dc5_layer4(dev, h, w, cin, p, ds, dil):
     """bf16, two frames, packed weights as the folded backbone hands them
@@ -245,11 +270,9 @@ def test_fused_bottleneck_kernel_wraps_the_ring_many_times(dev, stages, monkeypa
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("h,w,cin,p,ds", STAGES)
 def test_bottleneck_smem_bytes_matches_the_kernel(dev, itemsize, h, w, cin, p, ds):
-    import ctypes
     from stcat_tpu_torch.kernels import _build
 
-    fn = _build.load("bottleneck").bottleneck_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    fn = _build.load("bottleneck").bottleneck_smem_bytes  # declared as the library loads
     ch, cw, stages = pkb.pick_tile(h, w, cin, p, 4 * p, 1, itemsize, ds)
     rings = pkb.RINGS if itemsize == 2 else (0,)
     for tile, st in [((ch, cw), stages)] + [(t, r) for t in ((1, 1), (ch, 1)) for r in rings]:

@@ -476,6 +476,47 @@ def test_bottleneck_pack_b_lays_out_the_kernels_tiles(n, taps, kin, p, bn):
     mask = np.ones(packed.numel(), bool)
     mask[off.ravel()] = False
     assert (packed.numpy()[mask] == 0).all()
+    # unpacking inverts it: the weights come back without the padding, and
+    # packing them again gives the same tiles, zeros included
+    unpacked = pkb._unpack_b(packed, n, taps, kin, bn)
+    assert tuple(unpacked.shape) == (n, taps, kin) and torch.equal(unpacked, wt)
+    assert torch.equal(pkb._pack_b(unpacked, bn).contiguous().flatten(), packed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,p,proj", [
+    (16, 8, True),
+    (160, 40, False),    # P and Cout = 4P padded to whole slices and tiles
+    (64, 320, True),     # P > 256: the warpgroups split N, 256 columns per tile
+])
+def test_bottleneck_unpack_gives_back_the_plain_weights(dtype, cin, p, proj):
+    """pack holds the block's shape and the kernel's operands; unpack turns
+    the operands back into the weights pack cast (biases fp32), bit for bit,
+    as the plain version takes them."""
+    rng = np.random.RandomState(3)
+    packed = pkb.pack(_port_block(make_block(rng, cin, p, proj)), dtype)
+    assert (packed.cin, packed.planes, packed.cout, packed.proj) == (cin, p, 4 * p, proj)
+    assert packed.operands[0].dtype == dtype
+    for name, got, want in zip(pkb.BlockWeights._fields, pkb.unpack(packed), packed.weights):
+        if want is None:
+            assert got is None, name
+        else:
+            assert got.dtype == want.dtype and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("field,shape,match", [
+    ("w3", (8, 48), "identity skip needs Cin == Cout"),
+    ("w2", (3, 3, 8, 16), r"w2 is \(3, 3, 8, 16\), expected \(3, 3, 8, 8\)"),
+    ("b3", (1, 1, 16), r"b3 is \(1, 1, 16\), expected \(1, 1, 32\)"),
+])
+def test_bottleneck_pack_refuses_weights_that_do_not_fit_together(field, shape, match):
+    """pack validates the block's weights once, whatever their device; each
+    launch then checks only x against the shape pack kept."""
+    rng = np.random.RandomState(4)
+    bw = _port_block(make_block(rng, 32, 8, False))
+    bw = bw._replace(**{field: torch.zeros(shape)})
+    with pytest.raises(ValueError, match=match):
+        pkb.pack(bw, torch.float32)
 
 
 # --------------------------------------------------------------------------

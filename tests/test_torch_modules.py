@@ -306,7 +306,7 @@ def test_fold_built_in_inference_mode_serves_no_grad():
     with torch.no_grad():
         again = m(x)
     assert FOLDS.count == built and torch.equal(served, again)
-    assert not m.layer1[0]._fold[1].weights.w1.is_inference()
+    assert not any(t.is_inference() for t in m.layer1[0]._fold[1].operands if t is not None)
     assert not m.layer2[0]._fold[1][0].is_inference()
 
 
