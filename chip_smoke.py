@@ -678,7 +678,7 @@ def serve_phase():
     # one served batch again: kernels vs their plain versions
     raw, _, _ = pred.prepare(requests[:2])
     with torch.inference_mode():
-        placed = to_device(raw, pred.device)
+        placed = pred.place(raw)
         out_k = eval_forward(cfg, pred.model, placed)
         with plain_kernels():
             out_p = eval_forward(cfg, pred.model, placed)
@@ -725,7 +725,7 @@ def serve_dc5(requests):
                              f"({K3_DILATED_PER_DC5_FORWARD} dilated)")
     raw, _, _ = pred.prepare(batch)
     with torch.inference_mode():
-        placed = to_device(raw, pred.device)
+        placed = pred.place(raw)
         out_k = eval_forward(cfg, pred.model, placed)
         with plain_kernels():
             out_p = eval_forward(cfg, pred.model, placed)

@@ -24,7 +24,9 @@ registered by its name and ``drain()`` reports its value (counters are not
 reset by a drain): the kernels' launch counters ``k1.launches``,
 ``k2.launches`` and ``k3.launches``, ``k3.dilated`` (the K3 launches at
 dilation 2), ``k3.folds``, the forwards that rebuilt the backbone's folded
-weights, and ``serve.forwards``, the forwards ``predict_batch`` launched.
+weights, ``serve.forwards``, the forwards ``predict_batch`` launched, and
+``serve.staged_ready``, ``serve.staged_waited`` and ``serve.unstaged``, how
+``prepare`` found each request's staging (``serve.py``).
 ``drain()`` returns and clears the spans (``drain(keep=True)`` leaves
 them), with two clock anchors,
 ``(time.time_ns(), time.perf_counter_ns())``, one sampled at ``enable()``

@@ -2,7 +2,9 @@
 
 ``build_raw_batch`` assembles raw samples for the on-device pixel path: uint8
 rgb frames, or yuv420 planes (a full-size luma plane and a half-size
-interleaved CbCr plane), each with its resample plan. ``build_batch``
+interleaved CbCr plane), each with its resample plan; ``assemble_raw_batch``
+is its part beside the pixels, for a caller that places them itself (the
+server stages each request's frames with ``place_canvas``). ``build_batch``
 assembles samples whose pixels the host already transformed
 (``TPU.DEVICE_PREPROCESS false``): normalised float32 frames.
 
@@ -143,6 +145,17 @@ def _place(dst: np.ndarray, f: np.ndarray, hcap: int) -> None:
         dst[:t, : min(h + 1, hcap), w] = dst[:t, : min(h + 1, hcap), w - 1]
 
 
+def place_canvas(dst: np.ndarray, f: np.ndarray) -> None:
+    """``_place`` a clip's frames ``f`` [t, h, w, ...] into ``dst`` [t, hc,
+    wc, ...], a canvas of the clip's own whose memory holds anything: the
+    rest of it is zeroed, so ``dst`` ends as a zeroed canvas would after
+    ``_place``."""
+    h, w = f.shape[1:3]
+    _place(dst, f, dst.shape[1])
+    dst[:, h + 1:] = 0
+    dst[:, : h + 1, w + 1:] = 0
+
+
 def build_raw_batch(samples: List[Dict], t_bucket: int, tokenizer, max_query_len: int):
     """Raw samples (rgb frames_u8 [T,h,w,3], or yuv420 frames_y [T,h,w] and
     frames_cbcr [T,ceil(h/2),ceil(w/2),2], uint8; plan, text, item_id,
@@ -151,32 +164,39 @@ def build_raw_batch(samples: List[Dict], t_bucket: int, tokenizer, max_query_len
     the JAX package's return order. A chroma plane's canvas is half the
     luma canvas, its replicated row capped at that half."""
     b = len(samples)
-    yuv = "frames_y" in samples[0]
-    key = "frames_y" if yuv else "frames_u8"
-    (hs, ws), out_canvas = raw_canvases(samples)
-
-    if yuv:
-        frames_u8 = None
-        frames_y = np.zeros((b, t_bucket, hs, ws), np.uint8)
-        frames_cbcr = np.zeros((b, t_bucket, hs // 2, ws // 2, 2), np.uint8)
+    (hs, ws), _ = raw_canvases(samples)
+    if "frames_y" in samples[0]:
+        planes = {"frames_y": np.zeros((b, t_bucket, hs, ws), np.uint8),
+                  "frames_cbcr": np.zeros((b, t_bucket, hs // 2, ws // 2, 2), np.uint8)}
     else:
-        frames_u8 = np.zeros((b, t_bucket, hs, ws, 3), np.uint8)
-        frames_y = frames_cbcr = None
+        planes = {"frames_u8": np.zeros((b, t_bucket, hs, ws, 3), np.uint8)}
+    for i, s in enumerate(samples):
+        for key, plane in planes.items():
+            if s[key].shape[0] > t_bucket:
+                raise ValueError(f"clip {s[key].shape} exceeds bucket {t_bucket} / canvas "
+                                 f"{(hs, ws)}")
+            _place(plane[i], s[key], hs // 2 if key == "frames_cbcr" else hs)
+    token_ids, token_valid = tokenizer([s["text"] for s in samples], max_query_len)
+    return assemble_raw_batch(samples, t_bucket, token_ids, token_valid, **planes)
+
+
+def assemble_raw_batch(samples: List[Dict], t_bucket: int, token_ids, token_valid,
+                       frames_u8=None, frames_y=None, frames_cbcr=None):
+    """``build_raw_batch``'s result around pixel planes the caller placed
+    (or will place: the planes are only stored): the frame masks, the
+    plans' flips, affines and output sizes, the targets and the meta of
+    ``samples``, whose pixel arrays give only their shapes here, with the
+    given tokens [B, L]."""
+    b = len(samples)
+    key = _pixel_key(samples[0])
+    (hs, ws), out_canvas = raw_canvases(samples)
     flip = np.zeros((b,), bool)
     affine_scale = np.zeros((b, 2), np.float32)
     affine_off = np.zeros((b, 2), np.float32)
     out_size = np.zeros((b, 2), np.int32)
     targets, frame_valid, meta = _build_targets(samples, t_bucket)
     for i, s in enumerate(samples):
-        f, plan = s[key], s["plan"]
-        t, h, w = f.shape[:3]
-        if t > t_bucket or h > hs or w > ws:
-            raise ValueError(f"clip {f.shape} exceeds bucket {t_bucket} / canvas {(hs, ws)}")
-        if yuv:
-            _place(frames_y[i], f, hs)
-            _place(frames_cbcr[i], s["frames_cbcr"], hs // 2)
-        else:
-            _place(frames_u8[i], f, hs)
+        plan, w = s["plan"], s[key].shape[2]
         ay, by, ax, bx = plan.affine
         if plan.flip:
             bx += ws - w  # the device flips the whole canvas
@@ -185,7 +205,6 @@ def build_raw_batch(samples: List[Dict], t_bucket: int, tokenizer, max_query_len
         affine_off[i] = (by, bx)
         out_size[i] = plan.out_hw
 
-    token_ids, token_valid = tokenizer([s["text"] for s in samples], max_query_len)
     batch = RawVideoBatch(
         frames_u8=frames_u8, frames_y=frames_y, frames_cbcr=frames_cbcr,
         frame_valid=frame_valid, flip=flip,

@@ -12,9 +12,18 @@ holds 2R lanes (R = max_batch; short request lists are padded with replica
 lanes that are decoded away), preprocessed on the device, run through
 STCATNet, postprocessed, and merged back to the full frame rate.
 
+A request's own host work (``GroundingPredictor.stage``: checks, stream
+split, plans, tokens, and each stream's frames written once on a canvas of
+their own, in page-locked memory when serving on a card) runs when
+``MicroBatcher.submit`` takes it, on a staging thread, while the card serves
+the groups ahead; a direct ``predict``/``predict_batch`` call stages in
+``prepare``. ``place`` then allocates the batch's frame tensor on the
+device and fills it by non-blocking copies from the staged canvases.
+
 Spans (``core/trace.py``; ``trace.enable()`` turns them on,
-``trace.drain()`` collects them). Each submitted request gets an id. The
-dispatcher thread, named
+``trace.drain()`` collects them). Each submitted request gets an id, and a
+``serve.stage`` span (``attrs["request"]``) on the staging thread
+``stcat-stage_0``. The dispatcher thread, named
 ``stcat-microbatcher``, records per group ``serve.group`` (from taking its
 first request to closing it, the ``max_wait_ms`` wait included) and
 ``serve.dispatch`` around ``predict_batch`` (``attrs["requests"]``: the
@@ -28,17 +37,22 @@ frames it runs, ``canvas``, their [H, W], and ``backbone_hw``, the
 backbone's output [h, w]), ``serve.postprocess``, ``serve.readback``
 (the one wait for the card) and ``serve.merge`` (the stream merge and the
 result dicts). ``cli/serve.py --trace`` serves them at ``GET /trace``. The
-counter ``serve.forwards`` counts the forwards ``predict_batch`` launches,
-one per group of at most max_batch requests, recorder on or off.
+counters count recorder on or off: ``serve.forwards`` the forwards
+``predict_batch`` launches, one per group of at most max_batch requests;
+per request ``prepare`` takes, ``serve.staged_ready`` those staged by
+``submit`` whose staging was done when ``prepare`` began,
+``serve.staged_waited`` those it waited for, and ``serve.unstaged`` those of
+direct calls.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,7 +60,8 @@ import torch
 
 from .core import trace
 from .core.batch import RawVideoBatch, to_device
-from .data.batching import build_raw_batch, pick_bucket
+from .data.batching import (SRC_CANVAS_QUANT, assemble_raw_batch, pick_bucket, place_canvas,
+                            raw_canvases, round_up)
 from .data.tokenize import build_tokenizer, check_tokenizer_for_weights
 from .data.transforms import build_transforms
 from .eval.engine import merge_two_streams, orig_sizes, to_host
@@ -58,13 +73,85 @@ from .train.step import make_eval_forward
 
 
 DISPATCHER = "stcat-microbatcher"
+STAGER = "stcat-stage"
 FORWARDS = trace.Counter("serve.forwards")
+STAGED_READY = trace.Counter("serve.staged_ready")
+STAGED_WAITED = trace.Counter("serve.staged_waited")
+UNSTAGED = trace.Counter("serve.unstaged")
 
 
 def eval_forward(cfg, model, raw: RawVideoBatch) -> Dict[str, torch.Tensor]:
     """On-device preprocess + STCATNet forward of a host-stacked raw batch;
     returns the postprocess inputs."""
     return make_eval_forward(cfg, model, device_split=False)(raw)
+
+
+class Request(tuple):
+    """A request as ``MicroBatcher.submit`` queues it: the (frames, text,
+    frame_ids) tuple predict_batch takes, and ``staged``, the Future of its
+    ``GroundingPredictor.stage`` on the batcher's staging thread."""
+
+    staged: Future
+
+    def __new__(cls, frames, text, frame_ids):
+        return super().__new__(cls, (frames, text, frame_ids))
+
+
+@dataclasses.dataclass
+class Staged:
+    """A request's host work that its lane-mates do not change: its even and
+    odd streams as raw samples (``frames_u8`` a [t, h, w, 3] view of
+    ``canvas``, the stream's frames as ``place_canvas`` lays them out on a
+    canvas of their own, page-locked when the predictor serves on a card)
+    and its sentence's tokens, [1, MAX_QUERY_LEN] each."""
+
+    streams: Tuple[Dict, Dict]
+    token_ids: np.ndarray
+    token_valid: np.ndarray
+
+
+@dataclasses.dataclass
+class StagedFrames:
+    """A prepared batch's frames, still on the host: row b's staged canvas
+    ``rows[b]`` and its frames' (h, w) ``sizes[b]``, for a device tensor of
+    ``shape`` [B, T, Hs, Ws, 3]."""
+
+    rows: List[torch.Tensor]
+    sizes: List[Tuple[int, int]]
+    shape: Tuple[int, int, int, int, int]
+
+    def place(self, device) -> torch.Tensor:
+        """The frames as ``build_raw_batch`` lays them out, in a tensor
+        allocated on ``device``: each row copied from its canvas
+        (``non_blocking``: from page-locked memory the host goes on, and
+        torch's caching host allocator keeps the canvas until the copy is
+        done), a row whose canvas an earlier row took (a replica lane, a
+        one-frame clip's second stream) copied from that row on the device,
+        and the frames past a row's length zeroed there."""
+        out = torch.empty(self.shape, dtype=torch.uint8, device=device)
+        hs, ws = self.shape[2:4]
+        for b, src in enumerate(self.rows):
+            first = next(j for j in range(b + 1) if self.rows[j] is src)
+            if first < b:
+                out[b].copy_(out[first])
+                continue
+            t, hc, wc = src.shape[:3]
+            out[b, t:].zero_()
+            if (hc, wc) == (hs, ws):
+                out[b, :t].copy_(src, non_blocking=True)
+                continue
+            # a canvas smaller than the batch's: zero around it and replicate
+            # the boundary row and column against the batch's canvas
+            lane = out[b, :t]
+            lane[:, :hc, :wc].copy_(src, non_blocking=True)
+            lane[:, hc:].zero_()
+            lane[:, :hc, wc:].zero_()
+            h, w = self.sizes[b]
+            if h < hs:
+                lane[:, h, :w] = lane[:, h - 1, :w]
+            if w < ws:
+                lane[:, : min(h + 1, hs), w] = lane[:, : min(h + 1, hs), w - 1]
+        return out
 
 
 class GroundingPredictor:
@@ -99,11 +186,14 @@ class GroundingPredictor:
             load_weights_for_eval(self.model, path, logger)
         self._lock = threading.Lock()
 
-    def _raw_sample(self, frames: np.ndarray, text: str, item_id, fids, pad: bool) -> Dict:
-        h, w = frames.shape[1:3]
+    def _stream(self, frames: np.ndarray, text: str, fids) -> Dict:
+        t, h, w = frames.shape[:3]
         plan, _, text = self.transform.plan((h, w), np.zeros((0, 4), np.float32), text)
-        return {"frames_u8": np.ascontiguousarray(frames), "plan": plan, "text": text,
-                "item_id": item_id, "frame_ids": list(fids), "ori_size": (h, w), "pad": pad}
+        canvas = torch.empty((t, round_up(h, SRC_CANVAS_QUANT), round_up(w, SRC_CANVAS_QUANT), 3),
+                             dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        place_canvas(canvas.numpy(), frames)
+        return {"frames_u8": canvas[:, :h, :w], "canvas": canvas, "plan": plan, "text": text,
+                "frame_ids": list(fids), "ori_size": (h, w), "pad": False}
 
     def predict(self, frames: np.ndarray, text: str,
                 frame_ids: Optional[Sequence[int]] = None) -> Dict:
@@ -128,7 +218,7 @@ class GroundingPredictor:
             batch.note(real=sum(1 for m in m1 if not m["pad"]), lanes=len(m1))
             with self._lock, torch.inference_mode():
                 with trace.span("serve.h2d"):
-                    placed = to_device(raw, self.device)
+                    placed = self.place(raw)
                     sizes = to_device(orig_sizes(m1 + m2), self.device)
                 attrs = self._forward_attrs(raw) if trace.enabled() else {}
                 with trace.span("serve.forward", **attrs):
@@ -157,51 +247,87 @@ class GroundingPredictor:
         return {"rows": int(rows), "canvas": [h, w],
                 "backbone_hw": [-(-h // stride), -(-w // stride)]}
 
+    def stage(self, request) -> Staged:
+        """The host work of one request (frames, text, frame_ids) that no
+        lane-mate changes: its checks, the even/odd stream split, each
+        stream's plan and canvas, and its tokens (padded to MAX_QUERY_LEN).
+        ``MicroBatcher.submit`` runs it as the request arrives; ``prepare``
+        runs it for a request that was not staged."""
+        frames, text = np.asarray(request[0]), request[1]
+        fids = request[2] if len(request) > 2 else None
+        if frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"frames must be [T,H,W,3], got {frames.shape}")
+        if frames.dtype != np.uint8:
+            raise ValueError("frames must be uint8 RGB")
+        t = frames.shape[0]
+        fids = list(range(t)) if fids is None else list(fids)
+        if len(fids) != t:
+            raise ValueError(f"{len(fids)} frame_ids for {t} frames")
+        if t >= 2:
+            streams = (self._stream(frames[0::2], text, fids[0::2]),
+                       self._stream(frames[1::2], text, fids[1::2]))
+        else:  # degenerate single-frame clip: duplicate the stream
+            even = self._stream(frames, text, fids)
+            streams = (even, dict(even, pad=True))
+        ids, valid = self.tokenizer([streams[0]["text"]], self.cfg.INPUT.MAX_QUERY_LEN)
+        return Staged(streams, ids, valid)
+
     def prepare(self, requests) -> Tuple[RawVideoBatch, List[Dict], List[Dict]]:
         """Host side of predict_batch for at most max_batch requests: the
-        stacked raw batch (numpy) and the meta of its even and odd streams."""
+        stacked raw batch (its frames ``StagedFrames``, for ``place``; the
+        rest numpy) and the meta of its even and odd streams. A request that
+        ``MicroBatcher.submit`` staged is waited for (``serve.staged_ready``
+        counts those whose staging was done when this began,
+        ``serve.staged_waited`` the others); any other is staged here
+        (``serve.unstaged``)."""
         if len(requests) > self.max_batch:
             raise ValueError(f"{len(requests)} requests for {self.max_batch} lanes")
-        reqs = list(requests)
-        n_real = len(reqs)
-        while len(reqs) < self.max_batch:  # fixed lane count: pad with replicas
-            reqs.append(reqs[0])
+        futures = [getattr(r, "staged", None) for r in requests]
+        ready = [f is not None and f.done() for f in futures]
+        lanes = []
+        for r, fut, done in zip(requests, futures, ready):
+            if fut is None:
+                UNSTAGED.add()
+                lanes.append(self.stage(r))
+            else:
+                (STAGED_READY if done else STAGED_WAITED).add()
+                lanes.append(fut.result())
+        n_real = len(lanes)
+        lanes += [lanes[0]] * (self.max_batch - n_real)  # fixed lane count: pad with replicas
+        rows = [dict(lane.streams[k], item_id=i, pad=lane.streams[k]["pad"] or i >= n_real)
+                for k in (0, 1) for i, lane in enumerate(lanes)]
 
-        s0, s1 = [], []
-        for i, item in enumerate(reqs):
-            frames, text = np.asarray(item[0]), item[1]
-            fids = item[2] if len(item) > 2 and item[2] is not None else None
-            if frames.ndim != 4 or frames.shape[-1] != 3:
-                raise ValueError(f"frames must be [T,H,W,3], got {frames.shape}")
-            if frames.dtype != np.uint8:
-                raise ValueError("frames must be uint8 RGB")
-            t = frames.shape[0]
-            fids = list(range(t)) if fids is None else list(fids)
-            if len(fids) != t:
-                raise ValueError(f"{len(fids)} frame_ids for {t} frames")
-            pad = i >= n_real
-            if t >= 2:
-                s0.append(self._raw_sample(frames[0::2], text, i, fids[0::2], pad))
-                s1.append(self._raw_sample(frames[1::2], text, i, fids[1::2], pad))
-            else:  # degenerate single-frame clip: duplicate the stream
-                s0.append(self._raw_sample(frames, text, i, fids, pad))
-                s1.append(self._raw_sample(frames, text, i, fids, True))
-
-        t_bucket = pick_bucket(max(s["frames_u8"].shape[0] for s in s0 + s1),
+        t_bucket = pick_bucket(max(r["frames_u8"].shape[0] for r in rows),
                                self.cfg.TPU.FRAME_BUCKETS)
-        raw, _, meta = build_raw_batch(s0 + s1, t_bucket, self.tokenizer,
-                                       self.cfg.INPUT.MAX_QUERY_LEN)
-        return raw, meta[: len(s0)], meta[len(s0):]
+        (hs, ws), _ = raw_canvases(rows)
+        frames = StagedFrames([r["canvas"] for r in rows], [r["ori_size"] for r in rows],
+                              (len(rows), t_bucket, hs, ws, 3))
+        ids = np.concatenate([lane.token_ids for lane in lanes] * 2)
+        valid = np.concatenate([lane.token_valid for lane in lanes] * 2)
+        raw, _, meta = assemble_raw_batch(rows, t_bucket, ids, valid, frames_u8=frames)
+        return raw, meta[: len(lanes)], meta[len(lanes):]
+
+    def place(self, raw: RawVideoBatch) -> RawVideoBatch:
+        """A prepared batch on the predictor's device: the frames first, in
+        a tensor allocated there (``StagedFrames.place``), then the small
+        arrays."""
+        frames = raw.frames_u8.place(self.device)
+        placed = to_device(dataclasses.replace(raw, frames_u8=None), self.device)
+        return dataclasses.replace(placed, frames_u8=frames)
 
 
 class MicroBatcher:
     """Groups concurrent submit() calls into stacked device batches.
 
-    One dispatcher thread (named ``stcat-microbatcher``) drains the queue,
-    waits up to max_wait_ms for lane-mates, and runs
-    predictor.predict_batch; errors reach every caller of the failed group
-    through its Future. Each request is queued with its id and its submit
-    time (``perf_counter_ns``) for the module's spans.
+    ``submit`` hands each request to one staging thread (named
+    ``stcat-stage_0``), which runs ``predictor.stage`` on it while the card
+    serves the groups ahead, and queues it at once. One dispatcher thread
+    (named ``stcat-microbatcher``) drains the queue, waits up to max_wait_ms
+    for lane-mates, and runs predictor.predict_batch, whose ``prepare``
+    waits for the group's staging; errors, of the staging too, reach every
+    caller of the failed group through its Future. Each request is queued
+    with its id and its submit time (``perf_counter_ns``) for the module's
+    spans.
     """
 
     def __init__(self, predictor: GroundingPredictor, max_batch: Optional[int] = None,
@@ -212,14 +338,24 @@ class MicroBatcher:
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._ids = itertools.count()
+        self._stager = ThreadPoolExecutor(1, thread_name_prefix=STAGER)
         self._thread = threading.Thread(target=self._run, daemon=True, name=DISPATCHER)
         self._thread.start()
 
     def submit(self, frames: np.ndarray, text: str,
                frame_ids: Optional[Sequence[int]] = None) -> Future:
+        """Queue a request and return its Future at once: its staging runs
+        on the staging thread."""
+        submitted, rid = time.perf_counter_ns(), next(self._ids)
         fut: Future = Future()
-        self._q.put((fut, (frames, text, frame_ids), next(self._ids), time.perf_counter_ns()))
+        req = Request(frames, text, frame_ids)
+        req.staged = self._stager.submit(self._stage, req, rid)
+        self._q.put((fut, req, rid, submitted))
         return fut
+
+    def _stage(self, req: Request, rid: int) -> Staged:
+        with trace.span("serve.stage", request=rid):
+            return self.predictor.stage(req)
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -255,6 +391,7 @@ class MicroBatcher:
     def close(self) -> None:
         self._stop.set()
         self._thread.join(timeout=5)
+        self._stager.shutdown(wait=True, cancel_futures=True)
 
     def __enter__(self):
         return self

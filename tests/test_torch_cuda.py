@@ -966,3 +966,81 @@ def test_host_path_eval_frames_match_the_device_rgb_path(dev, tmp_path):
         np.testing.assert_allclose(got.frames.cpu().numpy(), hb.frames.cpu().numpy(),
                                    atol=5e-4, rtol=0)
         assert torch.equal(got.pixel_valid, hb.pixel_valid)
+
+
+def _mix_requests(frames=128, seed=0):
+    """Two requests of the serving mix's shape: 320 x 240 clips of
+    ``frames`` frames (two streams of frames / 2 each)."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, 256, (frames, 240, 320, 3), dtype=np.uint8),
+             f"the person {i} walks to the left", None) for i in range(2)]
+
+
+def test_staged_frames_are_pinned_and_placed_bit_for_bit_at_the_mix_shape(dev):
+    """At the serving mix's shape (2 lanes x 2 streams x 64 frames of 240 x
+    320): every staged canvas is page-locked, and the placed batch equals
+    to_device(build_raw_batch(...)) bit for bit, though the staged sources
+    are dropped as soon as their copies are queued (behind a chain of
+    matmuls) and fresh page-locked buffers of their size are written at
+    once: the caching host allocator keeps a canvas until its copy is done."""
+    import dataclasses
+
+    from stcat_tpu_torch.serve import GroundingPredictor
+    from torch_staging import built_before_staging, staged
+
+    cfg = tiny_cfg(["INPUT.RESOLUTION", 448, "TPU.FRAME_BUCKETS", "[64]"])
+    pred = GroundingPredictor(cfg, max_batch=2, device="cuda")
+    reqs = _mix_requests()
+    want, w1, w2 = built_before_staging(pred, reqs)
+    ahead = staged(pred, reqs)
+    canvases = [s["canvas"] for r in ahead for s in r.staged.result().streams]
+    assert len(canvases) == 4 and all(c.is_pinned() for c in canvases)
+    assert canvases[0].shape == (64, 256, 320, 3)
+    shape = canvases[0].shape
+    del canvases
+    busy = torch.randn(4096, 4096, device=dev)
+    for _ in range(30):
+        busy = torch.tanh(busy @ busy)
+    raw, m1, m2 = pred.prepare(ahead)
+    got = pred.place(raw)
+    del ahead, raw
+    scribbled = [torch.full(shape, 7, dtype=torch.uint8, pin_memory=True) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert (m1, m2) == (w1, w2) and got.frames_u8.shape == (4, 64, 256, 320, 3)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    del scribbled
+
+
+def test_peak_card_memory_of_predict_batch_is_the_same_staged_or_not(dev):
+    """torch.cuda.max_memory_allocated over one predict_batch of two
+    16-frame 320 x 240 requests: the same with the batch built as before
+    staging (build_raw_batch + to_device), staged in prepare, and staged
+    ahead as MicroBatcher.submit stages it."""
+    from stcat_tpu_torch.core.batch import to_device
+    from stcat_tpu_torch.serve import GroundingPredictor
+    from torch_staging import built_before_staging, staged
+
+    cfg = tiny_cfg(["INPUT.RESOLUTION", 64, "INPUT.MAX_QUERY_LEN", 12, "TPU.FRAME_BUCKETS", "[8]"])
+    pred = GroundingPredictor(cfg, max_batch=2, device="cuda")
+    reqs = _mix_requests(frames=16, seed=1)
+    pred.predict_batch(reqs)  # kernels built, weights folded
+    peaks = {}
+    for route in ("before", "unstaged", "staged"):
+        batch = staged(pred, reqs) if route == "staged" else reqs
+        if route == "before":
+            pred.prepare = lambda r: built_before_staging(pred, r, place=False)
+            pred.place = lambda raw: to_device(raw, pred.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        pred.predict_batch(batch)
+        torch.cuda.synchronize()
+        peaks[route] = torch.cuda.max_memory_allocated(dev) - base
+        if route == "before":
+            del pred.prepare, pred.place
+    assert peaks["unstaged"] == peaks["staged"] == peaks["before"] > 0, peaks

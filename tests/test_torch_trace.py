@@ -242,6 +242,30 @@ def test_micro_batcher_records_each_requests_path(predictor):
             assert s["thread_name"] == serve.DISPATCHER
 
 
+def test_each_submitted_request_is_staged_on_the_staging_thread(predictor):
+    """One serve.stage per submitted request, carrying its id, on the
+    staging thread, ending before its group's serve.prepare ends; a direct
+    call records none."""
+    trace.enable()
+    with MicroBatcher(predictor, max_wait_ms=500) as mb:
+        for f in [mb.submit(_clip(seed=k), f"a person {k}") for k in range(3)]:
+            f.result(timeout=120)
+    predictor.predict(_clip(), "a direct call")
+    spans = trace.drain()["spans"]
+    stages = by_name(spans, "serve.stage")
+    assert sorted(s["attrs"]["request"] for s in stages) == [0, 1, 2]
+    assert all(s["thread_name"].startswith(serve.STAGER) and s["parent"] is None
+               for s in stages)
+    prepares = by_name(spans, "serve.prepare")
+    assert len(prepares) == 3  # two groups, then the direct call
+    for d in by_name(spans, "serve.dispatch"):
+        (b,) = [b for b in by_name(spans, "serve.batch") if b["parent"] == d["id"]]
+        (p,) = [p for p in prepares if p["parent"] == b["id"]]
+        for s in stages:
+            if s["attrs"]["request"] in d["attrs"]["requests"]:
+                assert s["end_ns"] <= p["end_ns"]
+
+
 def test_a_failed_group_still_records_its_dispatch_and_queued_spans(predictor):
     """A group whose prep raises: both callers get the error, its
     serve.dispatch and each request's serve.queued are recorded, and its

@@ -302,7 +302,7 @@ def serve(pred: GroundingPredictor, reqs) -> Tuple[Dict[str, np.ndarray], Dict[s
     raw, _, _ = pred.prepare(reqs)
     cfg = pred.cfg
     with torch.inference_mode():
-        batch = preprocess(to_device(raw, pred.device), tuple(cfg.INPUT.PIXEL_MEAN),
+        batch = preprocess(pred.place(raw), tuple(cfg.INPUT.PIXEL_MEAN),
                            tuple(cfg.INPUT.PIXEL_STD))
         out = flatten(pred.model.eval()(batch))
     return answers(results, raw.frame_valid), out
